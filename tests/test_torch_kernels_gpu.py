@@ -1,0 +1,80 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+These need a CUDA device and ``nvcc`` (the kernels build at first launch);
+without a card they skip.  Run them on a GPU machine with
+
+    PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import bridge_attention as ba
+from repro_torch.kernels import bridge_gather as bg
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _pool(gen, rows, dtype, device, page=(16, 8, 128)):
+    return torch.randn((rows,) + page, generator=gen, device=device).to(dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,page", [(torch.bfloat16, (16, 8, 128)),
+                                        (torch.float32, (8, 2, 32)),
+                                        (torch.bfloat16, (8,))])
+def test_gather_kernel_matches_plain(cuda, dtype, page):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(0)
+    pool = _pool(gen, 64, dtype, cuda, page)
+    reqs = torch.tensor([3, -1, 63, 0, 3, -1, 17, 40, 64], dtype=torch.int32,
+                        device=cuda)
+    before = bg.gather_pages.launches
+    got = bg.gather_pages(pool, reqs)
+    want = bg.gather_pages_plain(pool.view(64, -1), reqs).view_as(got)
+    assert bg.gather_pages.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_scatter_kernel_matches_plain(cuda, dtype):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1)
+    pool = _pool(gen, 64, dtype, cuda)
+    slots = torch.tensor([5, 9, -1, 5, 63, 9, 70, 0], dtype=torch.int32,
+                         device=cuda)
+    data = _pool(gen, 8, dtype, cuda)
+    got = bg.scatter_pages(pool.clone(), slots, data)
+    want = pool.clone()
+    bg.scatter_pages_plain(want.view(64, -1), slots, data.view(8, -1))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,b,h,kv,hd,t", [
+    (torch.bfloat16, 8, 32, 8, 128, 16),
+    (torch.float32, 4, 4, 2, 32, 8),
+    (torch.float32, 2, 8, 1, 64, 40),
+])
+def test_stream_kernel_matches_plain(cuda, dtype, b, h, kv, hd, t):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(2)
+    w = 8
+    q = torch.randn((b, h, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((w, t, kv, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((w, t, kv, hd), generator=gen, device=cuda).to(dtype)
+    seq = torch.randint(-1, b, (w,), generator=gen, device=cuda,
+                        dtype=torch.int32)
+    live = (seq >= 0).to(torch.int32)
+    m = torch.randn((b, h), generator=gen, device=cuda)
+    l = torch.rand((b, h), generator=gen, device=cuda) + 0.5
+    o = torch.randn((b, h, hd), generator=gen, device=cuda)
+    got = ba.stream_decode_accumulate(q, k, v, seq, live, m, l, o)
+    want = ba.stream_decode_accumulate_plain(q, k, v, seq, live, m, l, o)
+    for g, w_ in zip(got, want):
+        torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
