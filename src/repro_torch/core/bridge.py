@@ -1,40 +1,99 @@
-"""The bridge transfer engine, one-device loopback path.
+"""The bridge transfer engine: the loopback path and the fused N-node engine.
 
-Ports ``repro.core.bridge.pull_pages`` / ``push_pages`` for a memory axis of
-one device with the fused datapath: requests pad to whole rounds of
-``budget`` pages with FREE, the runtime rate limiter ``active_budget`` spills
-what lies past ``rounds * active_budget``, each request is translated
-through the :class:`~repro_torch.core.memport.MemPortTable` to the flat pool
-row ``home * pages_per_node + slot`` (one memory node: ``pages_per_node`` is
-the pool's row count), and the page moves through one
-:func:`~repro_torch.kernels.bridge_gather.gather_pages` or
-:func:`~repro_torch.kernels.bridge_gather.scatter_pages` launch.
+Ports ``repro.core.bridge.pull_pages`` / ``push_pages`` with the fused
+datapath.  Requests pad to whole rounds of ``budget`` pages with FREE; the
+runtime rate limiter ``active_budget`` spills what lies past
+``rounds * active_budget``; each request is translated through the
+:class:`~repro_torch.core.memport.MemPortTable` to its home node and slot.
 
-``active_budget`` and the table stay device tensors: nothing here copies a
-value to the host.  Route programs, in-band telemetry and the N-node engine
-(a mesh) come with later slices of the port and raise here.
+* ``num_nodes == 1`` (loopback): the page moves through one
+  :func:`~repro_torch.kernels.bridge_gather.gather_pages` or
+  :func:`~repro_torch.kernels.bridge_gather.scatter_pages` launch at the
+  flat pool row ``home * pages_per_node + slot``.
+* ``num_nodes > 1``: the N memory nodes of the ring are an axis of one
+  device, the pool ``[N * ppn, *page]`` node-major (the reference's global
+  view of its sharded pool).  A :class:`~repro_torch.core.steering.
+  RouteProgram` steers each request onto the circuit of its ring distance,
+  as the reference's fused engine with its "a2a" exchange does.  The
+  round's all-gather of request windows is the identity (every window is
+  already on the device); the serving side of all N nodes is one
+  ``gather_pages`` launch into the all-to-all send buffer
+  ``[N, N, lanes, *page]``; the all-to-all is an index transpose that
+  :func:`~repro_torch.kernels.bridge_gather.pull_commit` reads in place; on
+  the write path the all-gather of data windows is an index that
+  :func:`~repro_torch.kernels.bridge_gather.push_commit` reads in place.
+  The Python loop runs over rounds, never over nodes.
+
+``channels`` splits each round's ``budget`` lanes into virtual channels of
+``ceil(budget / channels)`` lanes: what is served never changes, the push
+commit order follows the reference's grid.  The table, the program and
+``active_budget`` stay device tensors: nothing here copies a value to the
+host, so swapping any of them between calls builds and synchronises
+nothing.  In-band telemetry comes with a later slice of the port and raises
+here; the unfused, pipelined and bufferless engines and the "ladder"
+exchange lowering are not ported (the port runs the fused "a2a" engine).
 """
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 from repro_torch.core import steering
 from repro_torch.core.memport import FREE, MemPortTable
+from repro_torch.core.steering import RouteProgram
 from repro_torch.kernels import bridge_gather as _bg
 
 
-def _unported(mesh, program, collect_telemetry) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "the N-node bridge engine (a mesh) comes with a later slice of "
-            "the port; this slice runs the one-device loopback path")
-    if program is not None:
-        raise NotImplementedError(
-            "route programs come with the next slice of the port (steering)")
+def _unported(collect_telemetry) -> None:
     if collect_telemetry:
         raise NotImplementedError(
             "in-band telemetry comes with a later slice of the port")
 
+
+def _resolve_channels(channels: int) -> int:
+    if channels < 1:
+        raise ValueError(f"channels must be >= 1, got {channels}")
+    return int(channels)
+
+
+_DEFAULT_PROGRAMS: dict = {}
+
+
+def _resolve_program(program: Optional[RouteProgram], num_nodes: int,
+                     device) -> RouteProgram:
+    """Default program (full bidirectional coverage, built once per node
+    count and device) + static shape check."""
+    if program is None:
+        key = (num_nodes, str(device))
+        if key not in _DEFAULT_PROGRAMS:
+            _DEFAULT_PROGRAMS[key] = steering.bidirectional_program(
+                num_nodes, device=device)
+        return _DEFAULT_PROGRAMS[key]
+    if program.num_slots != num_nodes - 1:
+        raise ValueError(
+            f"route program has {program.num_slots} slots; a {num_nodes}-node "
+            f"ring needs {num_nodes - 1}")
+    return program
+
+
+def _budget_vec(active_budget, num_nodes: int, budget: int,
+                device) -> torch.Tensor:
+    """Per-node rate limiter i64[N] clipped to ``[0, budget]`` (a scalar is
+    shared by every node)."""
+    if active_budget is None or (not torch.is_tensor(active_budget)
+                                 and np.ndim(active_budget) == 0):
+        ab = budget if active_budget is None else int(active_budget)
+        return torch.full((num_nodes,), min(max(ab, 0), budget),
+                          dtype=torch.long, device=device)
+    ab = torch.as_tensor(active_budget).to(device=device, dtype=torch.long)
+    return torch.broadcast_to(ab, (num_nodes,)).clamp(0, budget)
+
+
+# ---------------------------------------------------------------------------
+# One-device loopback path
+# ---------------------------------------------------------------------------
 
 def _loopback_rows(ids: torch.Tensor, table: MemPortTable, ppn: int,
                    rounds: int, budget: int, active_budget) -> torch.Tensor:
@@ -60,28 +119,184 @@ def _pad_requests(ids: torch.Tensor, rounds: int, budget: int):
     return ids, pad
 
 
+# ---------------------------------------------------------------------------
+# Fused N-node engine on a node axis of one device
+# ---------------------------------------------------------------------------
+
+def _fused_window(ids: torch.Tensor, rnd: int, ab: torch.Tensor,
+                  lanes: int) -> torch.Tensor:
+    """Round ``rnd``'s request windows [N, lanes]: node j's window starts at
+    ``rnd * ab[j]`` (the pointer advances by the node's own budget); lanes
+    past ``ab[j]`` or past the request list carry FREE."""
+    length = ids.shape[-1]
+    lane = torch.arange(lanes, device=ids.device)[None, :]
+    idx = rnd * ab[:, None] + lane
+    ok = (lane < ab[:, None]) & (idx < length)
+    win = ids.gather(1, idx.clamp(max=length - 1))
+    return torch.where(ok, win, FREE)
+
+
+def _fused_steering(window: torch.Tensor, table: MemPortTable,
+                    program: RouteProgram, num_nodes: int):
+    """Steer every node's window at once: (home, slot, loopback, remote).
+
+    Requester j's request to ``home`` lies at ring distance
+    ``d = (home - j) mod N``; distance 0 is the loopback, and slot ``d - 1``
+    serves it iff the program wires that slot for requester j.
+    """
+    home, slot = table.translate(window)
+    me = torch.arange(num_nodes, device=window.device)[:, None]
+    dist = steering.ring_distance(home, me, num_nodes)
+    k = (dist - 1).clamp(0, num_nodes - 2)
+    wired = program.live[k] & (program.rank_epoch[k, me] >= 0)
+    return home, slot, dist == 0, (dist >= 1) & wired
+
+
+def _reassemble(chunks: torch.Tensor, length: int,
+                ab: torch.Tensor) -> torch.Tensor:
+    """Served round lanes [rounds, N, lanes, *page] -> [N, length, *page].
+
+    Round ``r`` of node j served ``want[j, r*ab[j] + k]`` in lane ``k``
+    (``k < ab[j]``); other lanes carried FREE and are dropped.  Lanes add
+    into zeros, as the reference's do (a -0.0 element comes back +0.0).
+    """
+    rounds, n, lanes = chunks.shape[:3]
+    page_shape = tuple(chunks.shape[3:])
+    dev = chunks.device
+    r = torch.arange(rounds, device=dev)[:, None, None]
+    k = torch.arange(lanes, device=dev)[None, None, :]
+    node = torch.arange(n, device=dev)[None, :, None]
+    dest = r * ab[None, :, None] + k
+    live = (k < ab[None, :, None]) & (dest < length)
+    flat = torch.where(live, node * length + dest, n * length)
+    out = chunks.new_zeros((n * length + 1,) + page_shape)
+    out.index_add_(0, flat.reshape(-1), chunks.reshape((-1,) + page_shape))
+    return out[:-1].view((n, length) + page_shape)
+
+
+def _pull_operands(window: torch.Tensor, table: MemPortTable,
+                   program: RouteProgram, num_nodes: int, ppn: int):
+    """One pull round's kernel operands: the send buffer's pool rows
+    i32[N, N, lanes] (``[h, j, lane]``: what home h serves for requester
+    j's lane, FREE elsewhere), and the commit's choice and loopback slot,
+    i32[N, lanes] each."""
+    home, slot, loop, remote = _fused_steering(window, table, program,
+                                               num_nodes)
+    homes = torch.arange(num_nodes, device=window.device)[:, None, None]
+    # A slot past the home's pool reads its last row, as the reference's
+    # shard-local fetch does.
+    rows = home * ppn + slot.clamp(max=ppn - 1)
+    serve = (home[None] == homes) & (remote & (slot >= 0))[None]
+    send_rows = torch.where(serve, rows[None], FREE).to(torch.int32)
+    choice = torch.where(loop, 0, torch.where(remote, home + 1, -1))
+    loop_slot = torch.where(loop, slot, FREE)
+    return send_rows, choice.to(torch.int32), loop_slot.to(torch.int32)
+
+
+def _pull_nodes(pool: torch.Tensor, want: torch.Tensor, table: MemPortTable,
+                ab: torch.Tensor, program: RouteProgram, *, num_nodes: int,
+                budget: int, channels: int) -> torch.Tensor:
+    """Fused pull: per round one gather into the a2a send buffer and one
+    commit, for all N nodes."""
+    ppn = pool.shape[0] // num_nodes
+    lanes = channels * -(-budget // channels)
+    chunks = []
+    for rnd in range(steering.num_rounds(want.shape[-1], budget)):
+        window = _fused_window(want, rnd, ab, lanes)
+        send_rows, choice, loop_slot = _pull_operands(window, table, program,
+                                                      num_nodes, ppn)
+        send = _bg.gather_pages(pool, send_rows)      # [N, N, lanes, *page]
+        chunks.append(_bg.pull_commit(pool, send, choice, loop_slot))
+    return _reassemble(torch.stack(chunks), want.shape[-1], ab)
+
+
+def _push_slots(window: torch.Tensor, table: MemPortTable,
+                program: RouteProgram, num_nodes: int) -> torch.Tensor:
+    """One push round's commit slots i32[N, N, lanes]: row k of home h holds
+    the slots requester (h - k) mod N writes there (row 0 the loopback)."""
+    home, slot, loop, remote = _fused_steering(window, table, program,
+                                               num_nodes)
+    homes = torch.arange(num_nodes, device=window.device)[:, None]
+    req = torch.remainder(
+        homes - torch.arange(num_nodes, device=window.device)[None, :],
+        num_nodes)
+    mine = (home[req] == homes[..., None]) & (loop | remote)[req]
+    return torch.where(mine, slot[req], FREE).to(torch.int32)
+
+
+def _push_nodes(pool: torch.Tensor, dest: torch.Tensor, payload: torch.Tensor,
+                table: MemPortTable, ab: torch.Tensor, program: RouteProgram,
+                *, num_nodes: int, budget: int, channels: int) -> None:
+    """Fused push: per round one in-place commit for all N homes."""
+    cb = -(-budget // channels)
+    for rnd in range(steering.num_rounds(dest.shape[-1], budget)):
+        window = _fused_window(dest, rnd, ab, channels * cb)
+        _bg.push_commit(pool, _push_slots(window, table, program, num_nodes),
+                        payload, (rnd * ab).to(torch.int32),
+                        channels=channels, cb=cb)
+
+
+# ---------------------------------------------------------------------------
+# Public API
+# ---------------------------------------------------------------------------
+
+def _check_nodes(pool_pages: torch.Tensor, ids: torch.Tensor,
+                 num_nodes: int, program) -> Optional[RouteProgram]:
+    """Shape checks; the route program of the N-node engine (None on the
+    loopback path, whose request rows may have any leading shape)."""
+    if num_nodes == 1:
+        # The loopback path has no circuit slot: a program can wire nothing.
+        if program is not None:
+            _resolve_program(program, 1, pool_pages.device)
+        return None
+    if num_nodes < 1 or ids.dim() != 2 or ids.shape[0] != num_nodes:
+        raise ValueError(f"requests {list(ids.shape)} must be [num_nodes="
+                         f"{num_nodes}, R]")
+    if pool_pages.shape[0] % num_nodes:
+        raise ValueError(f"pool of {pool_pages.shape[0]} pages does not "
+                         f"split over {num_nodes} nodes")
+    return _resolve_program(program, num_nodes, pool_pages.device)
+
+
 def pull_pages(pool_pages: torch.Tensor, want: torch.Tensor,
-               table: MemPortTable, *, mesh=None, budget: int = 8,
-               active_budget=None, program=None,
+               table: MemPortTable, *, num_nodes: int = 1, budget: int = 8,
+               channels: int = 1, active_budget=None,
+               program: Optional[RouteProgram] = None,
                collect_telemetry: bool = False) -> torch.Tensor:
-    """Pull logical pages through the loopback bridge.
+    """Pull logical pages through the bridge.
 
     Args:
-      pool_pages: [pages_per_node, *page_shape], one memory node.
+      pool_pages: [num_nodes * pages_per_node, *page_shape], node-major.
       want: [num_nodes, R] per-node request lists (logical page ids, FREE
         pad), int32.
       table: memport table.
+      num_nodes: size of the memory axis (1 = the loopback path).
       budget: pages per round (static).
-      active_budget: runtime rate limiter (int or device tensor, clipped to
-        ``[0, budget]``); None serves every request.
-      mesh, program, collect_telemetry: later slices; must stay unset.
+      channels: virtual channels per round (static, >= 1); what is served
+        does not depend on it.  Ignored on the loopback path.
+      active_budget: runtime rate limiter (int, or a device tensor of one
+        value or one per node), clipped to ``[0, budget]``; None serves
+        every request.  The loopback path applies its first value.
+      program: runtime route program (default: full bidirectional
+        coverage); requests whose circuit it does not wire come back as
+        zeros.
+      collect_telemetry: a later slice; must stay unset.
     Returns:
-      [num_nodes, R, *page_shape] gathered pages (zeros for FREE, spilled
-      and unmapped requests).
+      [num_nodes, R, *page_shape] gathered pages (zeros for FREE, spilled,
+      unwired and unmapped requests).
     """
-    _unported(mesh, program, collect_telemetry)
+    _unported(collect_telemetry)
+    channels = _resolve_channels(channels)
+    program = _check_nodes(pool_pages, want, num_nodes, program)
     r = want.shape[-1]
     rounds = steering.num_rounds(r, budget)
+    if num_nodes > 1:
+        if rounds == 0:
+            return pool_pages.new_zeros((num_nodes, r) + pool_pages.shape[1:])
+        ab = _budget_vec(active_budget, num_nodes, budget, pool_pages.device)
+        return _pull_nodes(pool_pages, want, table, ab, program,
+                           num_nodes=num_nodes, budget=budget,
+                           channels=channels)
     want, _ = _pad_requests(want, rounds, budget)
     flat = _loopback_rows(want, table, pool_pages.shape[0], rounds, budget,
                           active_budget)
@@ -92,22 +307,39 @@ def pull_pages(pool_pages: torch.Tensor, want: torch.Tensor,
 
 
 def push_pages(pool_pages: torch.Tensor, dest: torch.Tensor,
-               payload: torch.Tensor, table: MemPortTable, *, mesh=None,
-               budget: int = 8, active_budget=None, program=None,
+               payload: torch.Tensor, table: MemPortTable, *,
+               num_nodes: int = 1, budget: int = 8, channels: int = 1,
+               active_budget=None, program: Optional[RouteProgram] = None,
                collect_telemetry: bool = False) -> torch.Tensor:
-    """Write pages to their homes through the loopback bridge.
+    """Write pages to their homes through the bridge.
 
     Args as :func:`pull_pages`, plus dest: [num_nodes, R] logical page ids
     each node writes and payload: [num_nodes, R, *page_shape] (cast to the
-    pool's dtype).  Writes past ``rounds * active_budget`` spill and drop;
-    among writes to one page the last wins.  Where the reference donates the
-    pool buffer, the port updates ``pool_pages`` in place and returns it.
+    pool's dtype).  Writes past ``rounds * active_budget`` spill and drop,
+    as do writes over an unwired circuit; among one node's writes to one
+    page the last wins (pages have a single writer node).  Where the
+    reference donates the pool buffer, the port updates ``pool_pages`` in
+    place and returns it.
     """
-    _unported(mesh, program, collect_telemetry)
+    _unported(collect_telemetry)
+    channels = _resolve_channels(channels)
+    program = _check_nodes(pool_pages, dest, num_nodes, program)
     r = dest.shape[-1]
     rounds = steering.num_rounds(r, budget)
-    dest, pad = _pad_requests(dest, rounds, budget)
+    if tuple(payload.shape) != tuple(dest.shape) + tuple(pool_pages.shape[1:]):
+        raise ValueError(f"payload {list(payload.shape)} does not match "
+                         f"dest {list(dest.shape)} pages of "
+                         f"{list(pool_pages.shape[1:])}")
     payload = payload.to(pool_pages.dtype)
+    if num_nodes > 1:
+        if rounds:
+            ab = _budget_vec(active_budget, num_nodes, budget,
+                             pool_pages.device)
+            _push_nodes(pool_pages, dest, payload.contiguous(), table, ab,
+                        program, num_nodes=num_nodes, budget=budget,
+                        channels=channels)
+        return pool_pages
+    dest, pad = _pad_requests(dest, rounds, budget)
     if pad:
         zeros = payload.new_zeros(payload.shape[:1] + (pad,)
                                   + payload.shape[2:])

@@ -1,15 +1,20 @@
-"""Disaggregated KV cache through the loopback bridge (the paper's case study).
+"""Disaggregated KV cache through the bridge (the paper's case study).
 
 Layout, as in ``repro.core.kvbridge``: per layer, KV pages live in pools
 
     k_pool, v_pool : [num_slots, page_tokens, kv_heads, head_dim]
 
-addressed through one :class:`~repro_torch.core.memport.MemPortTable` shared
-by all layers.  The tail (partially-filled) page of each sequence stays in a
-local write buffer and is flushed through the bridge once, when it fills.
-Decode attention in ``bridge_pull`` placement pulls the flushed pages one
-bridge round at a time and folds each round straight into the float32
-flash-decode state (:func:`~repro_torch.kernels.bridge_attention.
+striped over ``num_nodes`` memory nodes (node-major rows, ``num_nodes *
+slots_per_node`` of them) and addressed through one
+:class:`~repro_torch.core.memport.MemPortTable` shared by all layers.  The
+batch splits over the nodes: node i requests and flushes the pages of
+sequences ``i * per_node .. (i + 1) * per_node - 1`` (``per_node =
+ceil(B / N)``; padding rows carry FREE).  The tail (partially-filled) page
+of each sequence stays in a local write buffer and is flushed through the
+bridge once, when it fills.  Decode attention in ``bridge_pull`` placement
+pulls the flushed pages one bridge round at a time (``N * budget`` pages,
+node-major) and folds each round straight into the float32 flash-decode
+state (:func:`~repro_torch.kernels.bridge_attention.
 stream_decode_accumulate`), then merges the tail page's partial.
 
 The reference's buffers are immutable; the port updates the pools and the
@@ -18,11 +23,13 @@ tail buffers in place.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
 from repro_torch.core import bridge
 from repro_torch.core.memport import FREE, MemPortTable
+from repro_torch.core.steering import RouteProgram
 from repro_torch.kernels.bridge_attention import stream_decode_accumulate
 
 NEG_INF = -1e30
@@ -86,15 +93,28 @@ def _finalize(m, l, o):
 # Append (write path): edge-buffered write combining
 # ---------------------------------------------------------------------------
 
+def _by_node(x: torch.Tensor, num_nodes: int, fill=0) -> torch.Tensor:
+    """[B, ...] -> [N, ceil(B / N), ...], padding rows filled with ``fill``."""
+    per_node = -(-x.shape[0] // num_nodes)
+    pad = num_nodes * per_node - x.shape[0]
+    if pad:
+        x = torch.cat([x, x.new_full((pad,) + tuple(x.shape[1:]), fill)], 0)
+    return x.reshape((num_nodes, per_node) + tuple(x.shape[1:]))
+
+
 def append(layer: PagedKVLayer, table: MemPortTable, lengths: torch.Tensor,
            k_new: torch.Tensor, v_new: torch.Tensor, *, page_tokens: int,
-           max_pages: int, budget: int = 8) -> PagedKVLayer:
+           max_pages: int, num_nodes: int = 1, budget: int = 8,
+           channels: int = 1,
+           program: Optional[RouteProgram] = None) -> PagedKVLayer:
     """Append one token's (k, v) [B, kv, hd] for one layer.
 
     Tokens land in the local tail buffer; when a sequence's tail page fills,
     the page is flushed through the bridge to its pooled home (one masked
-    ``push_pages`` per pool: sequences not at a page boundary carry FREE).
-    Updates ``layer``'s tensors in place and returns it.
+    ``push_pages`` per pool over ``num_nodes`` nodes: sequences not at a
+    page boundary, and the padding rows of a batch that does not split
+    evenly over the nodes, carry FREE).  ``channels`` and ``program`` thread
+    to the bridge.  Updates ``layer``'s tensors in place and returns it.
     """
     b = lengths.shape[0]
     rows = torch.arange(b, device=lengths.device)
@@ -106,11 +126,15 @@ def append(layer: PagedKVLayer, table: MemPortTable, lengths: torch.Tensor,
     page_idx = lengths // page_tokens
     dest = torch.where(page_full & (page_idx < max_pages),
                        rows.to(torch.int32) * max_pages + page_idx, FREE)
-    dest = dest.to(torch.int32)[None]                            # [1, B]
-    bridge.push_pages(layer.k_pool, dest, layer.tail_k[None], table,
-                      budget=budget)
-    bridge.push_pages(layer.v_pool, dest, layer.tail_v[None], table,
-                      budget=budget)
+    # Padding rows must carry FREE destinations: a zero pad would be a live
+    # push into logical page 0 (sequence 0's first KV page) every step.
+    dest = _by_node(dest.to(torch.int32), num_nodes, fill=FREE)  # [N, B/N]
+    kw = dict(num_nodes=num_nodes, budget=budget, channels=channels,
+              program=program)
+    bridge.push_pages(layer.k_pool, dest, _by_node(layer.tail_k, num_nodes),
+                      table, **kw)
+    bridge.push_pages(layer.v_pool, dest, _by_node(layer.tail_v, num_nodes),
+                      table, **kw)
     # A flushed tail restarts empty (zeros are fine: positions are masked).
     flushed = page_full[:, None, None, None]
     layer.tail_k.masked_fill_(flushed, 0)
@@ -125,13 +149,19 @@ def append(layer: PagedKVLayer, table: MemPortTable, lengths: torch.Tensor,
 def decode_attention_pull(q: torch.Tensor, layer: PagedKVLayer,
                           table: MemPortTable, lengths: torch.Tensor, *,
                           page_tokens: int, max_pages: int,
-                          budget: int = 8) -> torch.Tensor:
+                          num_nodes: int = 1, budget: int = 8,
+                          channels: int = 1,
+                          program: Optional[RouteProgram] = None
+                          ) -> torch.Tensor:
     """Paper-faithful: pull pages through the bridge, attend locally.
 
-    q: [B, H, hd] -> out [B, H, hd].  Pages stream through the online-softmax
-    accumulator in rounds of ``budget`` pages: every round of the request
-    list is pulled, all-FREE rounds included, in the reference's order, so
-    each lane lands where it lands in the reference.
+    q: [B, H, hd] -> out [B, H, hd].  Node i requests the pages of its
+    ``ceil(B / num_nodes)`` sequences; pages stream through the
+    online-softmax accumulator one bridge round at a time, ``budget`` pages
+    per node, node-major: every round of the request list is pulled,
+    all-FREE rounds included, in the reference's order, so each lane lands
+    where it lands in the reference.  ``channels`` and ``program`` thread to
+    the bridge.
     """
     b, h, hd = q.shape
     kv = layer.k_pool.shape[-2]
@@ -140,7 +170,10 @@ def decode_attention_pull(q: torch.Tensor, layer: PagedKVLayer,
     flushed = lengths // page_tokens
     page = torch.arange(max_pages, device=q.device)
     want = torch.where(page[None, :] < flushed[:, None], want, FREE)
-    want = want.to(torch.int32).reshape(1, b * max_pages)
+    want = _by_node(want.to(torch.int32), num_nodes, fill=FREE)
+    want = want.reshape(num_nodes, -1)                  # [N, B/N * P]
+    kw = dict(num_nodes=num_nodes, budget=budget, channels=channels,
+              program=program)
 
     rtot = want.shape[-1]
     m_s = torch.full((b, h), NEG_INF, dtype=torch.float32, device=q.device)
@@ -148,9 +181,9 @@ def decode_attention_pull(q: torch.Tensor, layer: PagedKVLayer,
     o_s = torch.zeros((b, h, hd), dtype=torch.float32, device=q.device)
     for start in range(0, rtot, budget):
         want_r = want[:, start:start + budget]
-        k_r = bridge.pull_pages(layer.k_pool, want_r, table, budget=budget)
-        v_r = bridge.pull_pages(layer.v_pool, want_r, table, budget=budget)
-        lanes = want_r.shape[-1]
+        k_r = bridge.pull_pages(layer.k_pool, want_r, table, **kw)
+        v_r = bridge.pull_pages(layer.v_pool, want_r, table, **kw)
+        lanes = want_r.numel()
         wflat = want_r.reshape(-1)
         live = wflat >= 0
         # Logical page ids encode their sequence: id // max_pages.

@@ -9,16 +9,22 @@ from repro_torch.serve.cache_ops import BridgeCacheOps
 
 
 def make_cache_ops(run: RunConfig, max_len: int, page_tokens: int = 512, *,
-                   dtype=torch.bfloat16, device="cuda"):
+                   num_nodes: int = 1, dtype=torch.bfloat16, device="cuda"):
     """Build the KV-placement ops for a serve step (``local`` or
-    ``bridge_pull``; the other placements come with later slices)."""
+    ``bridge_pull``; the other placements come with later slices).
+
+    ``num_nodes`` is the size of the memory axis the KV pool is striped
+    over, on one device: 1 runs the loopback bridge, more the fused N-node
+    engine (the reference's ``mesh``); ``run.bridge`` gives the round budget
+    and the channels."""
     kp = run.kv_placement
     if kp == "local":
         return transformer.DenseCacheOps(max_len, dtype, device=device)
     if kp == "bridge_pull":
         return BridgeCacheOps(mode="pull", max_len=max_len,
-                              page_tokens=page_tokens,
-                              budget=run.bridge.epoch_budget, dtype=dtype,
+                              page_tokens=page_tokens, num_nodes=num_nodes,
+                              budget=run.bridge.epoch_budget,
+                              channels=run.bridge.channels, dtype=dtype,
                               device=device)
     raise NotImplementedError(
         f"kv placement {kp!r} comes with a later slice of the port")

@@ -78,3 +78,53 @@ def test_stream_kernel_matches_plain(cuda, dtype, b, h, kv, hd, t):
     want = ba.stream_decode_accumulate_plain(q, k, v, seq, live, m, l, o)
     for g, w_ in zip(got, want):
         torch.testing.assert_close(g, w_, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,n,lanes,page", [
+    (torch.bfloat16, 8, 8, (16, 8, 128)),
+    (torch.float32, 3, 5, (8, 2, 32)),
+])
+def test_pull_commit_kernel_matches_plain(cuda, dtype, n, lanes, page):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(3)
+    ppn = 16
+    pool = _pool(gen, n * ppn, dtype, cuda, page)
+    send = _pool(gen, n * n * lanes, dtype, cuda, page).view(
+        (n, n, lanes) + page)
+    choice = torch.randint(-1, n + 1, (n, lanes), generator=gen, device=cuda,
+                           dtype=torch.int32)
+    loop = torch.randint(-1, ppn + 2, (n, lanes), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    before = bg.pull_commit.launches
+    got = bg.pull_commit(pool, send, choice, loop)
+    want = bg.pull_commit_plain(pool.view(n * ppn, -1),
+                                send.view(n, n, lanes, -1), choice, loop)
+    assert bg.pull_commit.launches == before + 1
+    assert torch.equal(got.view_as(want), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,channels", [(torch.bfloat16, 1),
+                                            (torch.bfloat16, 2),
+                                            (torch.float32, 4)])
+def test_push_commit_kernel_matches_plain(cuda, dtype, channels):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(4)
+    n, ppn, budget, d_rows = 8, 6, 8, 10
+    cb = -(-budget // channels)
+    lanes = channels * cb
+    pool = _pool(gen, n * ppn, dtype, cuda)
+    # FREE lanes, slots past the node's pool and many duplicates
+    slots = torch.randint(-1, ppn + 1, (n, n, lanes), generator=gen,
+                          device=cuda, dtype=torch.int32)
+    data = _pool(gen, n * d_rows, dtype, cuda).view(
+        (n, d_rows) + pool.shape[1:])
+    base = torch.randint(0, d_rows, (n,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    got = bg.push_commit(pool.clone(), slots, data, base, channels=channels,
+                         cb=cb)
+    want = pool.clone()
+    bg.push_commit_plain(want.view(n * ppn, -1), slots,
+                         data.view(n, d_rows, -1), base, channels, cb)
+    assert torch.equal(got, want)

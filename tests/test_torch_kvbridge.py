@@ -1,10 +1,13 @@
-"""Port parity: the paged KV cache through the loopback bridge.
+"""Port parity: the paged KV cache through the bridge.
 
 Token after token, ``append`` writes the same random (k, v) into both
 packages' caches and ``decode_attention_pull`` attends a random query over
 them, over enough steps to flush several pages into the pool.  The pools and
 tail buffers must match bit for bit (only data moves); the attention output
-matches at 1e-5 in float32 (the online softmax sums in another order).
+matches at 1e-5 in float32 (the online softmax sums in another order).  The
+port's cache striped over 1, 2 or 8 memory nodes is held to
+``ref.push_pages_ref`` on the same flushes, and its attention to the
+reference's dense attention and one-node ``decode_attention_pull``.
 """
 import jax
 import jax.numpy as jnp
@@ -16,7 +19,7 @@ from repro.core import kvbridge as jkv
 from repro.core.memport import MemPortTable as JTable
 
 from repro_torch.core import kvbridge as tkv
-from repro_torch.core.memport import MemPortTable as TTable
+from repro_torch.core.memport import FREE, MemPortTable as TTable
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -98,3 +101,97 @@ def test_decode_attention_ref_matches_reference():
     want = jkv.decode_attention_ref(*map(jnp.asarray, (q, k, v, lengths)))
     got = tkv.decode_attention_ref(*map(torch.from_numpy, (q, k, v, lengths)))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+# (num_nodes, channels): the batch of 3 splits evenly over neither 2 nor 8
+# nodes, so padding rows ride along; 8 nodes leave most of them idle.
+NNODE_CASES = [(1, 1), (2, 1), (2, 2), (8, 1), (8, 4)]
+
+
+@pytest.mark.parametrize("num_nodes,channels", NNODE_CASES)
+def test_append_and_pull_over_nodes_match_reference(num_nodes, channels):
+    """The cache striped over ``num_nodes`` memory nodes: after every append
+    the pools equal ``ref.push_pages_ref`` applied to the same flushes (bit
+    for bit), and the attention output is within 1e-5 of the reference's
+    dense attention and of its one-node ``decode_attention_pull``."""
+    from repro.core import ref as jref
+    b, h, kv, hd, t, max_len, budget, steps = 3, 4, 2, 8, 4, 24, 3, 17
+    rng = np.random.default_rng(40 + num_nodes * 3 + channels)
+    max_pages = -(-max_len // t)
+    per_node = -(-b // num_nodes)
+    ppn = -(-b * max_pages // num_nodes)
+    pool_shape = (num_nodes * ppn, t, kv, hd)
+    tail_shape = (b, t, kv, hd)
+    t_layer = tkv.PagedKVLayer(
+        k_pool=torch.zeros(pool_shape), v_pool=torch.zeros(pool_shape),
+        tail_k=torch.zeros(tail_shape), tail_v=torch.zeros(tail_shape))
+    t_table = TTable.striped(b * max_pages, num_nodes, ppn, device="cpu")
+    j_table_n = JTable.striped(b * max_pages, num_nodes, ppn)
+    kw = dict(page_tokens=t, max_pages=max_pages, budget=budget)
+    # The reference's one-node cache, for its decode_attention_pull.
+    one = (b * max_pages, t, kv, hd)
+    j_layer = jkv.PagedKVLayer(k_pool=jnp.zeros(one), v_pool=jnp.zeros(one),
+                               tail_k=jnp.zeros(tail_shape),
+                               tail_v=jnp.zeros(tail_shape))
+    j_table = JTable.striped(b * max_pages, 1, b * max_pages)
+
+    @jax.jit
+    def j_step(layer, lengths, k_new, v_new, q):
+        layer = jkv.append(layer, j_table, lengths, k_new, v_new, mesh=None,
+                           **kw)
+        return layer, jkv.decode_attention_pull(q, layer, j_table,
+                                                lengths + 1, mesh=None, **kw)
+
+    ref_k, ref_v = jnp.zeros(pool_shape), jnp.zeros(pool_shape)
+    tail_k, tail_v = np.zeros(tail_shape, np.float32), np.zeros(
+        tail_shape, np.float32)
+    hist_k = np.zeros((b, steps, kv, hd), np.float32)
+    hist_v = np.zeros((b, steps, kv, hd), np.float32)
+
+    def by_node(x, fill):
+        pad = num_nodes * per_node - b
+        x = np.concatenate([x, np.full((pad,) + x.shape[1:], fill, x.dtype)])
+        return jnp.asarray(x.reshape((num_nodes, per_node) + x.shape[1:]))
+
+    for step in range(steps):
+        lengths = np.full((b,), step, np.int32)
+        k_new = rng.standard_normal((b, kv, hd)).astype(np.float32)
+        v_new = rng.standard_normal((b, kv, hd)).astype(np.float32)
+        q = rng.standard_normal((b, h, hd)).astype(np.float32)
+        hist_k[:, step], hist_v[:, step] = k_new, v_new
+        # What the step flushes: each tail page that this token fills.
+        off = step % t
+        tail_k[:, off], tail_v[:, off] = k_new, v_new
+        full = off == t - 1 and step // t < max_pages
+        dest = np.where(full, np.arange(b) * max_pages + step // t,
+                        FREE).astype(np.int32)
+        for name, tail in (("k", tail_k), ("v", tail_v)):
+            pool = ref_k if name == "k" else ref_v
+            pool = jref.push_pages_ref(pool, by_node(dest, FREE),
+                                       by_node(tail, 0.0), j_table_n, ppn)
+            if name == "k":
+                ref_k = pool
+            else:
+                ref_v = pool
+        if full:
+            tail_k[:], tail_v[:] = 0.0, 0.0
+
+        t_lengths = torch.from_numpy(lengths)
+        t_layer = tkv.append(t_layer, t_table, t_lengths,
+                             torch.from_numpy(k_new), torch.from_numpy(v_new),
+                             num_nodes=num_nodes, channels=channels, **kw)
+        t_out = tkv.decode_attention_pull(
+            torch.from_numpy(q), t_layer, t_table, t_lengths + 1,
+            num_nodes=num_nodes, channels=channels, **kw)
+        assert np.array_equal(t_layer.k_pool.numpy(), np.asarray(ref_k))
+        assert np.array_equal(t_layer.v_pool.numpy(), np.asarray(ref_v))
+        assert np.array_equal(t_layer.tail_k.numpy(), tail_k)
+        j_layer, j_out = j_step(j_layer, jnp.asarray(lengths),
+                                jnp.asarray(k_new), jnp.asarray(v_new),
+                                jnp.asarray(q))
+        np.testing.assert_allclose(t_out.numpy(), np.asarray(j_out), **TOL)
+        dense = jkv.decode_attention_ref(
+            jnp.asarray(q), jnp.asarray(hist_k), jnp.asarray(hist_v),
+            jnp.asarray(lengths + 1))
+        np.testing.assert_allclose(t_out.numpy(), np.asarray(dense), **TOL)
+    assert steps // t >= 3          # pages were flushed and pulled back

@@ -5,7 +5,9 @@ The JAX package's parameters for ``reduced("granite-3-8b")`` in float32
 both packages then decode the same prompt greedily for 24 steps at
 ``page_tokens=8``, ``max_len=64``.  Logits agree per step at 1e-4 (float32;
 the attention's online softmax and the matmuls sum in another order than
-XLA's) and the token sequences are identical.
+XLA's) and the token sequences are identical.  The port's bridge_pull runs
+on one memory node and striped over 8 (and 3, with two channels), against
+the reference's one-node bridge_pull and its ``local`` placement.
 """
 import dataclasses
 import os
@@ -25,6 +27,7 @@ from repro.models import transformer as jtransformer
 from repro.serve import step as jstep
 
 from repro_torch import configs as tconfigs, weights
+from repro_torch.config import BridgeConfig as TBridge
 from repro_torch.config import RunConfig as TRunConfig, ShapeConfig as TShape
 from repro_torch.kernels import _build, bridge_attention, bridge_gather
 from repro_torch.models import transformer as ttransformer
@@ -65,11 +68,12 @@ def jax_decode(cfg, params, kv, prompt):
     return np.stack(all_logits), np.stack(all_tokens, 1)
 
 
-def port_decode(cfg, params, kv, prompt):
+def port_decode(cfg, params, kv, prompt, num_nodes=1, channels=1):
     run = TRunConfig(model=cfg, shape=TShape("t", MAX_LEN, BATCH, "decode"),
-                     kv_placement=kv)
+                     kv_placement=kv, bridge=TBridge(channels=channels))
     ops = tstep.make_cache_ops(run, MAX_LEN, PAGE_TOKENS,
-                               dtype=torch.float32, device="cpu")
+                               num_nodes=num_nodes, dtype=torch.float32,
+                               device="cpu")
     state = tstep.init_serve_state(run, BATCH, ops)
     tokens, all_logits, all_tokens = torch.from_numpy(prompt), [], []
     for _ in range(STEPS):
@@ -104,6 +108,29 @@ def test_slice_matches_reference(slice_setup, kv):
     j_logits, j_tokens = jax_decode(jcfg, params, kv, prompt)
     t_params = weights.from_reference(params_np, tcfg, device="cpu")
     t_logits, t_tokens = port_decode(tcfg, t_params, kv, prompt)
+    for step in range(STEPS):
+        np.testing.assert_allclose(t_logits[step], j_logits[step],
+                                   err_msg=f"step {step}", **LOGIT_TOL)
+    assert np.array_equal(t_tokens, j_tokens)
+
+
+@pytest.fixture(scope="module")
+def jax_local(slice_setup):
+    jcfg, _, params, _, prompt = slice_setup
+    return jax_decode(jcfg, params, "local", prompt)
+
+
+@pytest.mark.parametrize("num_nodes,channels", [(8, 1), (3, 2)])
+def test_nnode_slice_matches_reference(slice_setup, jax_local, num_nodes,
+                                       channels):
+    """bridge_pull with the KV pool striped over memory nodes (the batch of
+    4 splits unevenly over 3 and leaves 4 of 8 nodes idle) against the
+    reference's ``local`` placement: identical tokens, logits at 1e-4."""
+    _, tcfg, _, params_np, prompt = slice_setup
+    j_logits, j_tokens = jax_local
+    t_params = weights.from_reference(params_np, tcfg, device="cpu")
+    t_logits, t_tokens = port_decode(tcfg, t_params, "bridge_pull", prompt,
+                                     num_nodes=num_nodes, channels=channels)
     for step in range(STEPS):
         np.testing.assert_allclose(t_logits[step], j_logits[step],
                                    err_msg=f"step {step}", **LOGIT_TOL)
@@ -206,6 +233,15 @@ def test_wrappers_never_fall_back_off_the_cpu():
         bridge_gather.gather_pages(pool, ids)
     with pytest.raises(ValueError, match="CUDA"):
         bridge_gather.scatter_pages(pool, ids, torch.empty((3, 2, 8), **meta))
+    ids2 = torch.empty((2, 3), dtype=torch.int32, **meta)
+    with pytest.raises(ValueError, match="CUDA"):
+        bridge_gather.pull_commit(pool, torch.empty((2, 2, 3, 2, 8), **meta),
+                                  ids2, ids2)
+    with pytest.raises(ValueError, match="CUDA"):
+        bridge_gather.push_commit(
+            pool, torch.empty((2, 2, 3), dtype=torch.int32, **meta),
+            torch.empty((2, 5, 2, 8), **meta),
+            torch.empty((2,), dtype=torch.int32, **meta), channels=1, cb=3)
     q = torch.empty((2, 4, 8), **meta)
     pages = torch.empty((3, 2, 2, 8), **meta)
     with pytest.raises(ValueError, match="CUDA"):
@@ -213,6 +249,8 @@ def test_wrappers_never_fall_back_off_the_cpu():
             q, pages, pages, ids, ids, torch.empty((2, 4), **meta),
             torch.empty((2, 4), **meta), torch.empty((2, 4, 8), **meta))
     assert bridge_gather.gather_pages.launches == 0
+    assert bridge_gather.pull_commit.launches == 0
+    assert bridge_gather.push_commit.launches == 0
     assert bridge_attention.stream_decode_accumulate.launches == 0
 
 
@@ -235,6 +273,17 @@ def test_launcher_runs_on_cpu(capsys):
                 "--max-len", "16", "--page-tokens", "4"])
     out = capsys.readouterr().out
     assert "kv=bridge_pull batch=2 steps=3 device=cpu" in out
+    assert "ms/step" in out
+
+
+def test_launcher_runs_nnode_on_cpu(capsys):
+    from repro_torch.launch import serve
+    serve.main(["--arch", "granite-3-8b", "--reduced", "--device", "cpu",
+                "--kv", "bridge_pull", "--batch", "3", "--steps", "9",
+                "--max-len", "16", "--page-tokens", "4", "--num-nodes", "8",
+                "--channels", "2"])
+    out = capsys.readouterr().out
+    assert "bridge: num_nodes=8 channels=2" in out
     assert "ms/step" in out
 
 
