@@ -8,15 +8,18 @@ prints no result):
 
 1. build    — compile every kernel under src/repro_torch/kernels/csrc, one
               nvcc per source, all started together;
-2. kernels  — each kernel against its plain PyTorch version at the shapes
-              the decode paths give it (page rows of 16 x 8 x 128 bf16):
-              the one-node path's W = 8 lanes (gather, scatter, stream) and
-              one round of the 8-node path (gather into the [8, 8, 8]-lane
-              send buffer, pull_commit, push_commit at channels 1 and 2,
-              stream over W = 64 lanes): data movement bit-exact, the
-              streaming accumulate within float32 rounding; times of kernel,
-              plain version and one equivalent PyTorch call, beside the
-              bound;
+2. kernels  — each kernel against its plain PyTorch version on the card:
+              the decode paths' page kernels at their shapes (page rows of
+              16 x 8 x 128 bf16; the one-node path's W = 8 lanes and one
+              round of the 8-node path), bit-exact, and the streaming
+              accumulate within float32 rounding; flash attention at the
+              sequence forward's shapes (B 8, S 1024, 32/8 heads of 128,
+              causal, bf16) and at the mask and head-size cases (float32
+              2e-5, bf16 2e-2); paged decode attention at the serving
+              decode shapes (3e-5 / 3e-2); the STREAM passes at the paper's
+              10,000,000 elements and at 1,003, bit-exact.  Times of
+              kernel, plain version and one equivalent PyTorch call, beside
+              the bound;
 3. full     — granite-3-8b at full width and depth (40 layers, d_model 4096,
               32/8 heads, vocab 49155) in bf16 with weights from a seeded
               generator: batch 8, max_len 1024, page_tokens 16, budget 8,
@@ -26,29 +29,44 @@ prints no result):
               default bidirectional route program) is fed the same tokens
               and its logits are held to local's.  Each path's kernels must
               launch exactly the counts its shapes give, counted from 0 just
-              before the path runs;
+              before the path runs.  The kernel API's paged decode attention
+              then reads layer 0 of the 8-node pool through the memport
+              table and is held to dense attention over local's cache;
 4. reduced  — reduced granite-3-8b in float32, a 16-token prompt then
               greedy: ``local`` and ``bridge_pull`` (1 and 8 nodes) emit
               identical tokens and logits within 1e-4;
-5. programs — the software-defined check: pull and push on one 8-node pool
+5. forward  — the same full-width weights: the sequence forward timed at
+              B 8 x S 1024 (median of 5 after a warm-up), exactly one flash
+              launch per layer; its logits over 200 random tokens held to
+              teacher-forced ``local`` decode within 5e-2 of the largest
+              logit, and in float32 at the reduced size within 1e-4;
+6. stream   — triad over 65,536 float32 elements pulled as 32 pages of
+              2048 through the 4-node bridge (a pool blocked over 4 memory
+              nodes, budget 8) is bit-identical to triad on the local
+              arrays (the check of the paper's Figure 3);
+7. programs — the software-defined check: pull and push on one 8-node pool
               under each of the route-program constructors back to back,
               bit-exact against the plain path on a CPU copy, with no nvcc
               run; then one 8-node pull and push under
               ``torch.cuda.set_sync_debug_mode("error")``;
-6. report   — one JSON line listing every ported kernel, the card's name and
-              power limit, then the result line.
+8. report   — one JSON line listing every ported kernel with its launches on
+              the paths that ran it, the card's name and power limit, then
+              the result line.
 
 Phases 3 and 4 also run ``bridge_pull`` with planted faults and fail unless
 their own limit rejects them: the last live lane of every pulled round
 dropped (a bridge that loses a page), and, on 8 nodes, a route program
-pruned of ring distance 4, which carries traffic.  Random weights repeat a
-token once decoding turns greedy; the prompt is what makes the KV pages
-differ enough for a lost page to show in the logits.
+pruned of ring distance 4, which carries traffic.  Phase 5 runs the forward
+with the flash kernel's mask shifted by one position (every query also sees
+the next token) and fails unless its limits reject that.  Random weights
+repeat a token once decoding turns greedy; the prompt is what makes the KV
+pages differ enough for a lost page to show in the logits.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import json
 import statistics
 import subprocess
@@ -65,16 +83,22 @@ from repro_torch import configs  # noqa: E402
 from repro_torch.config import (BridgeConfig, RunConfig,  # noqa: E402
                                 ShapeConfig)
 from repro_torch.core import bridge, kvbridge, steering  # noqa: E402
-from repro_torch.core.memport import MemPortTable  # noqa: E402
+from repro_torch.core.memport import FREE, MemPortTable  # noqa: E402
 from repro_torch.core.topology import Topology  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import bridge_attention as ba  # noqa: E402
 from repro_torch.kernels import bridge_gather as bg  # noqa: E402
-from repro_torch.models import transformer  # noqa: E402
+from repro_torch.kernels import flash_attention as fa  # noqa: E402
+from repro_torch.kernels import ops as kops  # noqa: E402
+from repro_torch.kernels import paged_attention as pa  # noqa: E402
+from repro_torch.kernels import stream as st  # noqa: E402
+from repro_torch.models import attention, transformer  # noqa: E402
+from repro_torch.models.flash import attention_ref  # noqa: E402
 from repro_torch.serve import step as serve_step  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
 STREAM_TOL = dict(rtol=1e-5, atol=1e-5)   # float32: only sum order differs
 # bf16 full width: local and bridge_pull round their attention outputs to
 # bf16 from float32 values that differ in the last float32 bits, and a
@@ -83,28 +107,61 @@ STREAM_TOL = dict(rtol=1e-5, atol=1e-5)   # float32: only sum order differs
 FULL_LOGIT_REL_TOL = 5e-2
 # float32 reduced model: the placements differ only in sum order.
 REDUCED_LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
+# Kernel checks against the plain versions, the reference suite's limits
+# (tests/test_kernels.py): the kernels compute in float32 and differ from
+# the dense softmax in sum order; bf16 adds one rounding of the output.
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+PAGED_TOL = {"float32": 3e-5, "bfloat16": 3e-2}
+# The sequence forward against teacher-forced local decode, bf16 full width:
+# one product over S rows against S products over one row round bf16 at
+# other places; the limit of the decode checks.
+FORWARD_LOGIT_REL_TOL = 5e-2
 NODES = 8                        # memory nodes of the N-node path
 PATHS = {"1-node": 1, f"{NODES}-node": NODES}
 
+# ``paths``: the decode paths of phase 3 that launch the kernel; ``headline``:
+# the measurement of phase 2 whose numbers stand at the top of its row.
 KERNELS = {
     "gather_pages": dict(
-        fn=bg.gather_pages, source="src/repro_torch/kernels/csrc/bridge_gather.cu",
+        fns=(bg.gather_pages,),
+        source="src/repro_torch/kernels/csrc/bridge_gather.cu",
         replaces="src/repro/kernels/bridge_gather.py:120",
-        paths=("1-node", "8-node")),
+        paths=("1-node", "8-node"), headline="8-node"),
     "pull_commit": dict(
-        fn=bg.pull_commit, source="src/repro_torch/kernels/csrc/bridge_gather.cu",
-        replaces="src/repro/kernels/bridge_gather.py:180", paths=("8-node",)),
+        fns=(bg.pull_commit,),
+        source="src/repro_torch/kernels/csrc/bridge_gather.cu",
+        replaces="src/repro/kernels/bridge_gather.py:180", paths=("8-node",),
+        headline="8-node"),
     "push_commit": dict(
-        fn=bg.push_commit, source="src/repro_torch/kernels/csrc/bridge_gather.cu",
-        replaces="src/repro/kernels/bridge_gather.py:281", paths=("8-node",)),
+        fns=(bg.push_commit,),
+        source="src/repro_torch/kernels/csrc/bridge_gather.cu",
+        replaces="src/repro/kernels/bridge_gather.py:281", paths=("8-node",),
+        headline="8-node"),
     "scatter_pages": dict(
-        fn=bg.scatter_pages, source="src/repro_torch/kernels/csrc/bridge_gather.cu",
-        replaces="src/repro/kernels/bridge_gather.py:325", paths=("1-node",)),
+        fns=(bg.scatter_pages,),
+        source="src/repro_torch/kernels/csrc/bridge_gather.cu",
+        replaces="src/repro/kernels/bridge_gather.py:325", paths=("1-node",),
+        headline="1-node"),
     "stream_decode_accumulate": dict(
-        fn=ba.stream_decode_accumulate,
+        fns=(ba.stream_decode_accumulate,),
         source="src/repro_torch/kernels/csrc/bridge_attention.cu",
         replaces="src/repro/kernels/bridge_attention.py:124",
-        paths=("1-node", "8-node")),
+        paths=("1-node", "8-node"), headline="8-node"),
+    "paged_attention": dict(
+        fns=(pa.paged_attention,),
+        source="src/repro_torch/kernels/csrc/paged_attention.cu",
+        replaces="src/repro/kernels/paged_attention.py:117", paths=(),
+        headline="api"),
+    "flash_attention": dict(
+        fns=(fa.flash_attention,),
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:109", paths=(),
+        headline="forward"),
+    "stream": dict(
+        fns=(st.stream_copy, st.stream_scale, st.stream_add, st.stream_triad),
+        source="src/repro_torch/kernels/csrc/stream.cu",
+        replaces="src/repro/kernels/stream.py:62", paths=(),
+        headline="triad float32"),
 }
 
 
@@ -123,13 +180,46 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
+def device_us(fn, kernel: str, calls: int = 20) -> float:
+    """Mean device time, in us, of the kernel whose name holds ``kernel``
+    over ``calls`` calls of ``fn``, from the profiler: the kernel alone,
+    without the host's issue time that back-to-back calls may wait on."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and kernel in e.key]
+    launches = sum(e.count for e in events)
+    if launches != calls:
+        raise AssertionError(f"profiled {launches} launches of {kernel} in "
+                             f"{calls} calls")
+    return sum(e.self_device_time_total for e in events) / launches
+
+
 def reset_launches() -> None:
     for k in KERNELS.values():
-        k["fn"].launches = 0
+        for fn in k["fns"]:
+            fn.launches = 0
 
 
 def read_launches() -> dict:
-    return {name: k["fn"].launches for name, k in KERNELS.items()}
+    return {name: sum(fn.launches for fn in k["fns"])
+            for name, k in KERNELS.items()}
+
+
+def count_path(report: dict, path: str, counts: dict) -> None:
+    """Add one path's launches, counted from 0 just before it ran, to the
+    report."""
+    for name, n in counts.items():
+        report[name]["launches"] += n
+        if n:
+            report[name]["by_path"].setdefault(path, {})["launches"] = n
 
 
 # ---------------------------------------------------------------------------
@@ -138,20 +228,25 @@ def read_launches() -> dict:
 
 def record(report: dict, name: str, path: str, *, err: float, ms: float,
            plain_ms: float, library_ms, nbytes: int, flops: int = 0,
-           note: str = "") -> None:
+           flop_rate: float = F32_FLOP_PER_S, note: str = "",
+           dev_us=None) -> dict:
     """Keep one kernel measurement, with its bound: the larger of the bytes
-    it must move over HBM's rate and its float32 operations over the
-    card's float32 rate."""
+    it must move over HBM's rate and its operations over the card's peak
+    rate for their input type (``flop_rate``: float32 by default)."""
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / F32_FLOP_PER_S
+    t_ops = flops / flop_rate
     entry = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                  library_ms=library_ms, bound_ms=max(t_bytes, t_ops) * 1e3,
                  bound_by="bytes" if t_bytes >= t_ops else "operations")
+    if dev_us is not None:
+        entry["device_us"] = dev_us
     report[name].setdefault("by_path", {})[path] = entry
     lib = "null" if library_ms is None else f"{library_ms:.4f}"
-    print(f"kernel {name} [{path}{note}]: {ms:.4f} ms, plain {plain_ms:.4f} "
-          f"ms, bound {entry['bound_ms']:.6f} ms ({entry['bound_by']}), "
-          f"library {lib} ms, max_abs_err {err:.3g}")
+    on_device = "" if dev_us is None else f" (device {dev_us:.2f} us)"
+    print(f"kernel {name} [{path}{note}]: {ms:.4f} ms{on_device}, plain "
+          f"{plain_ms:.4f} ms, bound {entry['bound_ms']:.6f} ms "
+          f"({entry['bound_by']}), library {lib} ms, max_abs_err {err:.3g}")
+    return entry
 
 
 def check_stream(report, path, q, kp, vp, seq, lv, m, l, o) -> None:
@@ -324,6 +419,190 @@ def check_kernels(report: dict, dev="cuda") -> None:
            note=", channels=1")
 
 
+def visible_pairs(sq: int, sk: int, causal: bool, window: int,
+                  q_offset: int) -> int:
+    """(query, key) pairs the masks leave visible: what the kernel's two
+    products must compute."""
+    q_pos = torch.arange(sq)[:, None] + q_offset
+    k_pos = torch.arange(sk)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window > 0:
+        mask &= q_pos - k_pos < window
+    return int(mask.sum())
+
+
+# flash checks beside the forward's shapes: (B, Sq, Sk, H, kv, hd, causal,
+# window, q_offset); float32 and bf16 each
+FLASH_CASES = [
+    (2, 200, 200, 32, 8, 128, False, 0, 0),
+    (1, 300, 300, 32, 8, 128, True, 100, 0),
+    (1, 128, 384, 32, 8, 128, True, 0, 256),
+    (1, 256, 256, 4, 1, 64, True, 0, 0),
+    (1, 256, 256, 4, 1, 120, True, 0, 0),
+    (1, 256, 256, 4, 1, 256, True, 0, 0),
+]
+
+
+def check_flash(report: dict, gen, dev="cuda") -> None:
+    """Flash attention against its plain version: timed at the sequence
+    forward's shapes (B 8, S 1024, 32/8 heads of 128, causal, bf16), then
+    the mask and head-size cases."""
+    def inputs(b, sq, sk, h, kv, hd, dtype):
+        return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
+                     for shape in ((b, sq, h, hd), (b, sk, kv, hd),
+                                   (b, sk, kv, hd)))
+
+    def error(q, k, v, dtype_name, **kw):
+        got = fa.flash_attention(q, k, v, **kw)
+        want = attention_ref(q, k, v, **kw)
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= FLASH_TOL[dtype_name]:
+            raise AssertionError(f"flash_attention {list(q.shape)} {kw} "
+                                 f"{dtype_name} differs from its plain "
+                                 f"version by {err:.3g}")
+        return err
+
+    b, s, h, kv, hd = 8, 1024, 32, 8, 128
+    q, k, v = inputs(b, s, s, h, kv, hd, torch.bfloat16)
+    err = error(q, k, v, "bfloat16", causal=True)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    pairs = visible_pairs(s, s, True, 0, 0)
+    record(report, "flash_attention", "forward", err=err,
+           ms=cuda_ms(lambda: fa.flash_attention(q, k, v)),
+           plain_ms=cuda_ms(lambda: attention_ref(q, k, v), iters=20),
+           library_ms=cuda_ms(
+               lambda: torch.nn.functional.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=True, enable_gqa=True)),
+           nbytes=2 * q.numel() * 2 + 2 * k.numel() * 2,
+           flops=4 * b * h * hd * pairs, flop_rate=BF16_FLOP_PER_S,
+           note=", B 8 S 1024 causal bf16",
+           dev_us=device_us(lambda: fa.flash_attention(q, k, v),
+                            "flash_fwd_kernel", calls=10))
+    del q, k, v, qt, kt, vt
+    worst = {}
+    for case in FLASH_CASES:
+        b, sq, sk, h, kv, hd, causal, window, q_offset = case
+        for dtype, name in ((torch.float32, "float32"),
+                            (torch.bfloat16, "bfloat16")):
+            q, k, v = inputs(b, sq, sk, h, kv, hd, dtype)
+            err = error(q, k, v, name, causal=causal, window=window,
+                        q_offset=q_offset)
+            worst[name] = max(worst.get(name, 0.0), err)
+    report["flash_attention"]["max_abs_err_other_cases"] = worst
+    print(f"kernel flash_attention: {len(FLASH_CASES)} more cases x 2 dtypes "
+          f"(not causal, window 100, q_offset 256, hd 64/120/256 with kv 1) "
+          f"within {FLASH_TOL}: worst {worst}")
+
+
+def check_paged(report: dict, gen, dev="cuda") -> None:
+    """Paged decode attention against its plain version at the serving
+    decode shapes (B 8, 32/8 heads of 128, T 16, 64 pages a sequence):
+    random distinct slots, one -1 entry, ragged lengths (0 and lengths
+    that are not a multiple of T among them)."""
+    b, h, kv, hd, t, mp = 8, 32, 8, 128, 16, 64
+    slots = b * mp + 8
+    table = torch.randperm(slots, generator=gen, device=dev)[:b * mp].view(
+        b, mp).to(torch.int32)
+    table[2, 1] = -1
+    lengths = torch.tensor([1024, 0, 17, 500, 1023, 16, 777, 64],
+                           dtype=torch.int32, device=dev)
+    for dtype, name in ((torch.float32, "float32"),
+                        (torch.bfloat16, "bfloat16")):
+        kp, vp = (torch.randn((slots, t, kv, hd), generator=gen,
+                              device=dev).to(dtype) for _ in range(2))
+        q = torch.randn((b, h, hd), generator=gen, device=dev).to(dtype)
+        got = pa.paged_attention(q, kp, vp, table, lengths, max_pages=mp)
+        want = pa.paged_attention_plain(q, kp, vp, table, lengths,
+                                        max_pages=mp)
+        err = float((got.float() - want.float()).abs().max())
+        if not err <= PAGED_TOL[name]:
+            raise AssertionError(f"paged_attention {name} differs from its "
+                                 f"plain version by {err:.3g}")
+        if got[1].any():
+            raise AssertionError("paged_attention: a sequence of length 0 "
+                                 "gave nonzero output")
+    pages = int((lengths // t).clamp(max=mp).sum())
+    page_bytes = t * kv * hd * kp.element_size()
+    record(report, "paged_attention", "api", err=err,
+           ms=cuda_ms(lambda: pa.paged_attention(q, kp, vp, table, lengths,
+                                                 max_pages=mp)),
+           plain_ms=cuda_ms(lambda: pa.paged_attention_plain(
+               q, kp, vp, table, lengths, max_pages=mp), iters=20),
+           library_ms=None,
+           nbytes=2 * pages * page_bytes + 2 * q.numel() * q.element_size()
+           + table.numel() * 4 + b * 4,
+           flops=pages * (4 * h * t * hd + h * t), note=", B 8 bf16",
+           dev_us=device_us(lambda: pa.paged_attention(
+               q, kp, vp, table, lengths, max_pages=mp), "paged_kernel"))
+
+
+STREAM_SIZES = (10_000_000, 1003)        # the paper's arrays; a ragged tail
+STREAM_BYTES = {"copy": 2, "scale": 2, "add": 3, "triad": 3}   # arrays moved
+STREAM_FLOPS = {"copy": 0, "scale": 1, "add": 1, "triad": 2}   # per element
+
+
+def stream_calls(q: float = 3.0) -> dict:
+    """Per pass: (kernel, plain version, one PyTorch call), each on (a, b,
+    c) as the paper names its arrays."""
+    return {
+        "copy": (lambda a, b, c: kops.stream_copy(c),
+                 lambda a, b, c: st.stream_copy_plain(c),
+                 lambda a, b, c: torch.empty_like(c).copy_(c)),
+        "scale": (lambda a, b, c: kops.stream_scale(c, q),
+                  lambda a, b, c: st.stream_scale_plain(c, q),
+                  lambda a, b, c: torch.mul(c, q)),
+        "add": (lambda a, b, c: kops.stream_add(a, b),
+                lambda a, b, c: st.stream_add_plain(a, b),
+                lambda a, b, c: torch.add(a, b)),
+        "triad": (lambda a, b, c: kops.stream_triad(b, c, q),
+                  lambda a, b, c: st.stream_triad_plain(b, c, q),
+                  lambda a, b, c: torch.add(b, c, alpha=q)),
+    }
+
+
+def check_stream_passes(report: dict, gen, dev="cuda") -> dict:
+    """The STREAM passes bit for bit against their plain versions at the
+    paper's 10,000,000 elements and at 1,003, float32 and bf16; times at
+    10M, rotating over 4 sets of arrays (at least 240 MB) so that
+    back-to-back calls do not run from the 50 MB L2.  Returns the local
+    rates in MiB/s, the paper's unit."""
+    rates = {}
+    for dtype, name in ((torch.float32, "float32"),
+                        (torch.bfloat16, "bfloat16")):
+        for n in STREAM_SIZES:
+            sets = [tuple(torch.randn((n,), generator=gen,
+                                      device=dev).to(dtype)
+                          for _ in range(3)) for _ in range(4)]
+            for op, (kernel, plain, library) in stream_calls().items():
+                if not torch.equal(kernel(*sets[0]), plain(*sets[0])):
+                    raise AssertionError(f"stream {op} {name} n={n} is not "
+                                         f"bit-identical to its plain version")
+                if n != STREAM_SIZES[0]:
+                    continue
+
+                def timed(fn):
+                    it = itertools.cycle(sets)
+                    return cuda_ms(lambda: fn(*next(it)), iters=100)
+
+                it = itertools.cycle(sets)
+                kernel_us = device_us(lambda: kernel(*next(it)),
+                                      "stream_pass_kernel")
+                entry = record(
+                    report, "stream", f"{op} {name}", err=0.0,
+                    ms=timed(kernel), plain_ms=timed(plain),
+                    library_ms=timed(library),
+                    nbytes=STREAM_BYTES[op] * n * sets[0][0].element_size(),
+                    flops=STREAM_FLOPS[op] * n,
+                    note=f", n={n}", dev_us=kernel_us)
+                rates[f"{op} {name}"] = (STREAM_BYTES[op] * n
+                                         * sets[0][0].element_size()
+                                         / (entry["ms"] / 1e3) / 2 ** 20)
+            del sets
+    return rates
+
+
 # ---------------------------------------------------------------------------
 # Phases 3 and 4: decode through the serve path
 # ---------------------------------------------------------------------------
@@ -333,7 +612,7 @@ def decode(cfg, params, kv, batch, max_len, page_tokens, steps, feed, *,
     """Decode ``steps`` steps: fed the input tokens ``feed`` [n, B] for the
     first n steps, greedy after; ``program`` replaces the route program in
     the shared state.  Returns (inputs, logits, per-step ms, a callable
-    that runs one more step)."""
+    that runs one more step, the decode state after ``steps`` steps)."""
     run = RunConfig(model=cfg, shape=ShapeConfig("smoke", max_len, batch,
                                                  "decode"), kv_placement=kv,
                     bridge=BridgeConfig(channels=1))
@@ -361,7 +640,7 @@ def decode(cfg, params, kv, batch, max_len, page_tokens, steps, feed, *,
     def one_more():
         transformer.decode_step(cfg, params, state, tokens, ops)
 
-    return torch.stack(inputs), torch.stack(logits_all), times, one_more
+    return torch.stack(inputs), torch.stack(logits_all), times, one_more, state
 
 
 def sync(dev) -> None:
@@ -420,7 +699,7 @@ def profile_step(label: str, run_step) -> dict:
     ours = {k: [(e.count, e.self_device_time_total / 1e3 / e.count)
                 for e in kernels if k in e.key]
             for k in ("gather_rows", "pull_commit_rows", "push_commit_rows",
-                      "scatter_rows", "stream_kernel")}
+                      "scatter_rows", "stream_kernel", "flash_fwd_kernel")}
     out = dict(wall_ms=wall, device_ms=device,
                device_busy_share=device / wall if device else None,
                kernel_launches=sum(e.count for e in kernels),
@@ -435,23 +714,25 @@ def expected_launches(num_nodes, batch, max_pages, budget, layers) -> dict:
     """Kernel launches of one decode step of bridge_pull, from its shapes."""
     per_node = -(-batch // num_nodes)
     rounds = -(-per_node * max_pages // budget)
+    want = dict.fromkeys(KERNELS, 0)
     if num_nodes == 1:
-        return dict(gather_pages=2 * rounds * layers, pull_commit=0,
-                    push_commit=0, scatter_pages=2 * layers,
+        want.update(gather_pages=2 * rounds * layers, scatter_pages=2 * layers,
                     stream_decode_accumulate=rounds * layers)
-    return dict(gather_pages=2 * rounds * layers,
-                pull_commit=2 * rounds * layers, push_commit=2 * layers,
-                scatter_pages=0, stream_decode_accumulate=rounds * layers)
+    else:
+        want.update(gather_pages=2 * rounds * layers,
+                    pull_commit=2 * rounds * layers, push_commit=2 * layers,
+                    stream_decode_accumulate=rounds * layers)
+    return want
 
 
 FULL = dict(batch=8, max_len=1024, page_tokens=16, steps=48, prompt=40,
             fault_steps=24)
 
 
-def full_width(report: dict, dev="cuda") -> dict:
+def full_params(dev="cuda"):
+    """Full-width granite-3-8b in bf16 with weights from seed 0, made once
+    for the decode and the forward phases."""
     cfg = configs.get_config("granite-3-8b")
-    batch, max_len, page_tokens, steps = (FULL[k] for k in (
-        "batch", "max_len", "page_tokens", "steps"))
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     t0 = time.perf_counter()
@@ -462,11 +743,17 @@ def full_width(report: dict, dev="cuda") -> dict:
           f"heads {cfg.num_heads}/{cfg.num_kv_heads} vocab {cfg.vocab_size}: "
           f"{n_params} bf16 params ({n_params * 2 / 1e9:.2f} GB) made in "
           f"{time.perf_counter() - t0:.1f} s")
+    return cfg, params, gen
+
+
+def full_width(report: dict, cfg, params, gen, dev="cuda") -> dict:
+    batch, max_len, page_tokens, steps = (FULL[k] for k in (
+        "batch", "max_len", "page_tokens", "steps"))
     fault_steps = FULL["fault_steps"]
     prompt = torch.randint(0, cfg.vocab_size, (FULL["prompt"], batch),
                            generator=gen, device=dev, dtype=torch.int32)
     shape = (batch, max_len, page_tokens)
-    inputs, local_logits, local_ms, local_next = decode(
+    inputs, local_logits, local_ms, local_next, local_state = decode(
         cfg, params, "local", *shape, steps, prompt, dev=dev)
     out = dict(local_ms_per_step=statistics.median(local_ms[1:]),
                local_first_step_ms=local_ms[0])
@@ -474,7 +761,7 @@ def full_width(report: dict, dev="cuda") -> dict:
     del local_next
     for path, n in PATHS.items():
         reset_launches()
-        _, pull_logits, pull_ms, pull_next = decode(
+        _, pull_logits, pull_ms, pull_next, pull_state = decode(
             cfg, params, "bridge_pull", *shape, steps, inputs, num_nodes=n,
             dev=dev)
         counts = read_launches()
@@ -503,13 +790,13 @@ def full_width(report: dict, dev="cuda") -> dict:
                       .float().mean())
         faults = {}
         with planted_fault():
-            _, fault_logits, _, _ = decode(
+            _, fault_logits, _, _, _ = decode(
                 cfg, params, "bridge_pull", *shape, fault_steps, inputs,
                 num_nodes=n, dev=dev)
         faults["lost_lane"] = worst_rel_diff(fault_logits,
                                              local_logits[:fault_steps])
         if n > 1:
-            _, fault_logits, _, _ = decode(
+            _, fault_logits, _, _, _ = decode(
                 cfg, params, "bridge_pull", *shape, fault_steps, inputs,
                 num_nodes=n, program=unwired_distance_4(dev), dev=dev)
             faults["unwired_distance_4"] = worst_rel_diff(
@@ -528,6 +815,10 @@ def full_width(report: dict, dev="cuda") -> dict:
             launches_per_step={k: c / steps for k, c in counts.items()})
         out[path]["profile"] = profile_step(f"bridge_pull {path}", pull_next)
         del pull_next
+        if n == NODES:
+            out["paged_api"] = paged_over_pool(report, cfg, local_state,
+                                               pull_state, gen, dev)
+        del pull_state
     out.update(pages_flushed_per_sequence=steps // page_tokens,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     print("full:", json.dumps({k: v for k, v in out.items()
@@ -535,8 +826,49 @@ def full_width(report: dict, dev="cuda") -> dict:
     for path in PATHS:
         print(f"full {path}:", json.dumps({k: v for k, v in out[path].items()
                                             if k != "profile"}))
-    del params
+    del local_state
     torch.cuda.empty_cache()
+    return out
+
+
+def paged_over_pool(report, cfg, local_state, pull_state, gen, dev) -> dict:
+    """The kernel API's paged decode attention over the KV pool that the
+    8-node bridge_pull decode left behind: layer 0's pages, addressed
+    through the memport table (page table = the flat pool rows of each
+    sequence's logical pages), against dense attention over the ``local``
+    cache of the same tokens.  Layer 0's k and v depend on the tokens only,
+    so the two caches hold the same values."""
+    layer = pull_state["layers"][0]["paged"]
+    table = pull_state["kv_shared"]["table"]
+    lengths = pull_state["lengths"]
+    b = lengths.shape[0]
+    max_pages = FULL["max_len"] // FULL["page_tokens"]
+    ppn = layer.k_pool.shape[0] // NODES
+    home, slot = table.translate(
+        kvbridge.logical_page_ids(b, max_pages, device=dev).reshape(-1))
+    rows = (home * ppn + slot).view(b, max_pages).to(torch.int32)
+    q = torch.randn((b, cfg.num_heads, cfg.head_dim), generator=gen,
+                    device=dev).bfloat16()
+    reset_launches()
+    got = kops.paged_attention(q, layer.k_pool, layer.v_pool, rows, lengths,
+                               max_pages=max_pages)
+    sync(dev)
+    counts = read_launches()
+    flushed = (lengths // FULL["page_tokens"]) * FULL["page_tokens"]
+    pos = torch.arange(FULL["max_len"], device=dev)
+    want = kvbridge.masked_decode_attention(
+        q, local_state["layers"][0]["k"], local_state["layers"][0]["v"],
+        pos[None, :] < flushed[:, None])
+    err = float((got.float() - want.float()).abs().max())
+    if not err <= PAGED_TOL["bfloat16"]:
+        raise AssertionError(f"paged decode over the 8-node pool differs from "
+                             f"local attention by {err:.3g}")
+    if counts["paged_attention"] != 1 or sum(counts.values()) != 1:
+        raise AssertionError(f"paged decode over the pool launched {counts}")
+    count_path(report, "api", counts)
+    out = dict(flushed_tokens=flushed.tolist(), max_abs_err_vs_local=err,
+               launches=counts["paged_attention"])
+    print("paged api:", json.dumps(out))
     return out
 
 
@@ -563,10 +895,11 @@ def reduced_f32(dev="cuda") -> None:
     args = (cfg, params)
     shape = (batch, max_len, page_tokens, steps)
     kw = dict(dtype=torch.float32, dev=dev)
-    local_in, local_logits, _, _ = decode(*args, "local", *shape, prompt, **kw)
+    local_in, local_logits, _, _, _ = decode(*args, "local", *shape, prompt,
+                                             **kw)
     for path, n in PATHS.items():
-        pull_in, pull_logits, _, _ = decode(*args, "bridge_pull", *shape,
-                                            prompt, num_nodes=n, **kw)
+        pull_in, pull_logits, _, _, _ = decode(*args, "bridge_pull", *shape,
+                                               prompt, num_nodes=n, **kw)
         if not torch.equal(local_in, pull_in):
             raise AssertionError(f"reduced f32: local and {path} bridge_pull "
                                  f"tokens differ")
@@ -574,8 +907,8 @@ def reduced_f32(dev="cuda") -> None:
                                    **REDUCED_LOGIT_TOL)
         err = float((pull_logits - local_logits).abs().max())
         with planted_fault():
-            _, fault_logits, _, _ = decode(*args, "bridge_pull", *shape,
-                                           local_in, num_nodes=n, **kw)
+            _, fault_logits, _, _, _ = decode(*args, "bridge_pull", *shape,
+                                              local_in, num_nodes=n, **kw)
         fault = float((fault_logits - local_logits).abs().max())
         if torch.allclose(fault_logits, local_logits, **REDUCED_LOGIT_TOL):
             raise AssertionError(f"reduced f32 {path}: a lost page moved the "
@@ -585,6 +918,178 @@ def reduced_f32(dev="cuda") -> None:
               f"steps x {batch} sequences (16 prompt + {steps - 16} greedy;"
               f" sample {local_in[16:, 0].tolist()}), max logit difference "
               f"{err:.3g}; planted fault {fault:.3g}")
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the sequence forward (prefill / scoring)
+# ---------------------------------------------------------------------------
+
+FORWARD = dict(batch=8, seq=1024, repeats=5, check_seq=200)
+
+
+@contextlib.contextmanager
+def shifted_mask():
+    """Attention through the flash kernel with q_offset shifted by one, so
+    every query also sees the next token: a mask fault.  The forward's
+    checks must reject what this produces."""
+    real = attention.flash_attention
+
+    def leaky(q, k, v, *, causal=True, window=0, q_offset=0):
+        return real(q, k, v, causal=causal, window=window,
+                    q_offset=q_offset + 1)
+
+    attention.flash_attention = leaky
+    try:
+        yield
+    finally:
+        attention.flash_attention = real
+
+
+def forward_vs_decode(cfg, params, tokens, dtype, dev):
+    """(forward logits, teacher-forced local decode logits, the forward's
+    logits under the planted mask fault), each [S, B, V]."""
+    b, s = tokens.shape
+    fwd, _ = transformer.forward(cfg, params, {"tokens": tokens})
+    with shifted_mask():
+        fault, _ = transformer.forward(cfg, params, {"tokens": tokens})
+    _, local, _, _, _ = decode(cfg, params, "local", b, s, 16, s,
+                               tokens.T.contiguous(), dtype=dtype, dev=dev)
+    return fwd.transpose(0, 1), local, fault.transpose(0, 1)
+
+
+def forward_phase(report: dict, cfg, params, dev="cuda") -> dict:
+    """Full-width granite-3-8b sequence forward: timed at B 8 x S 1024 with
+    the flash kernel's launches counted (one per layer), then held to
+    teacher-forced local decode over 200 tokens, with a planted mask fault
+    that the check must reject."""
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    b, s, repeats = FORWARD["batch"], FORWARD["seq"], FORWARD["repeats"]
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    logits, _ = transformer.forward(cfg, params, batch)       # warm-up
+    if (tuple(logits.shape) != (b, s, cfg.vocab_size)
+            or logits.dtype != torch.float32
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"forward logits {list(logits.shape)} "
+                             f"{logits.dtype} (finite: "
+                             f"{bool(torch.isfinite(logits).all())})")
+    del logits
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = []
+    for _ in range(repeats):
+        t0 = time.perf_counter()
+        logits, _ = transformer.forward(cfg, params, batch)
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+        del logits
+    counts = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = dict.fromkeys(KERNELS, 0)
+    want["flash_attention"] = cfg.num_layers * repeats
+    if counts != want:
+        raise AssertionError(f"forward launched {counts}, expected {want}")
+    count_path(report, "forward", counts)
+    ms = statistics.median(times)
+    prof = profile_step("forward", lambda: transformer.forward(cfg, params,
+                                                               batch))
+
+    tokens = torch.randint(0, cfg.vocab_size, (b, FORWARD["check_seq"]),
+                           generator=gen, device=dev, dtype=torch.int32)
+    fwd, local, fault = forward_vs_decode(cfg, params, tokens,
+                                          torch.bfloat16, dev)
+    if not (torch.isfinite(fwd).all() and torch.isfinite(local).all()):
+        raise AssertionError("non-finite logits in the forward check")
+    worst = worst_rel_diff(fwd, local)
+    if worst > FORWARD_LOGIT_REL_TOL:
+        raise AssertionError(f"forward logits differ from local decode by "
+                             f"{worst:.3g} of the largest logit")
+    fault_rel = worst_rel_diff(fault, local)
+    if not fault_rel > FORWARD_LOGIT_REL_TOL:
+        raise AssertionError(f"planted mask fault moved the forward's logits "
+                             f"by only {fault_rel:.3g} of the largest: the "
+                             f"check would pass it")
+    out = dict(batch=b, seq=s, ms_per_forward=ms, forward_ms=times,
+               prefill_tokens_per_s=b * s / (ms / 1e3),
+               flash_launches_per_forward=counts["flash_attention"] / repeats,
+               peak_gb=peak, check_seq=FORWARD["check_seq"],
+               worst_logit_rel_diff_vs_local=worst,
+               planted_mask_fault_rel_diff=fault_rel,
+               greedy_agreement=float((fwd.argmax(-1) == local.argmax(-1))
+                                      .float().mean()),
+               profile_device_ms=prof["device_ms"])
+    print("forward:", json.dumps(out))
+    return out
+
+
+def forward_reduced_f32(dev="cuda") -> dict:
+    """Reduced granite-3-8b in float32: the forward against teacher-forced
+    local decode at 1e-4 per position; the planted mask fault must break
+    that limit."""
+    cfg = dataclasses.replace(configs.get_reduced("granite-3-8b"),
+                              dtype="float32")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = transformer.init_params(cfg, gen, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (4, 48), generator=gen,
+                           device=dev, dtype=torch.int32)
+    fwd, local, fault = forward_vs_decode(cfg, params, tokens, torch.float32,
+                                          dev)
+    torch.testing.assert_close(fwd, local, **REDUCED_LOGIT_TOL)
+    if torch.allclose(fault, local, **REDUCED_LOGIT_TOL):
+        raise AssertionError("reduced f32: the planted mask fault passes the "
+                             "forward check")
+    out = dict(max_logit_diff=float((fwd - local).abs().max()),
+               planted_mask_fault=float((fault - local).abs().max()))
+    print("forward reduced:", json.dumps(out))
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 7: STREAM through the bridge (the check of the paper's Figure 3)
+# ---------------------------------------------------------------------------
+
+def stream_bridge(report: dict, dev="cuda") -> dict:
+    """Triad over 65,536 float32 elements held as 32 pages of 2048 in a
+    pool blocked over 4 memory nodes, node 0 pulling every page through the
+    4-node bridge (budget 8): bit-identical to triad on the local arrays."""
+    n, page, nodes = 65536, 2048, 4
+    pages = n // page
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    b = torch.randn((n,), generator=gen, device=dev)
+    c = torch.randn((n,), generator=gen, device=dev)
+    table = MemPortTable.blocked(pages, nodes, pages // nodes, device=dev)
+    want = torch.full((nodes, pages), FREE, dtype=torch.int32, device=dev)
+    want[0] = torch.arange(pages, dtype=torch.int32, device=dev)
+
+    def remote():
+        kw = dict(num_nodes=nodes, budget=8)
+        c_rem = bridge.pull_pages(c.view(pages, page), want, table, **kw)
+        b_rem = bridge.pull_pages(b.view(pages, page), want, table, **kw)
+        return kops.stream_triad(b_rem[0].reshape(-1), c_rem[0].reshape(-1))
+
+    reset_launches()
+    local = kops.stream_triad(b, c)
+    got = remote()
+    sync(dev)
+    counts = read_launches()
+    if not torch.equal(local, got):
+        raise AssertionError("triad through the 4-node bridge differs from "
+                             "triad on the local arrays")
+    if (counts["stream"] != 2 or not counts["gather_pages"]
+            or not counts["pull_commit"]):
+        raise AssertionError(f"STREAM through the bridge launched {counts}")
+    count_path(report, "bridge", counts)
+    out = dict(elements=n, pages=pages, nodes=nodes, bit_identical=True,
+               local_triad_ms=cuda_ms(lambda: kops.stream_triad(b, c),
+                                      iters=50),
+               bridge_pull_and_triad_ms=cuda_ms(remote, iters=20),
+               launches=counts)
+    print("stream bridge:", json.dumps(out))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -678,33 +1183,55 @@ def main() -> int:
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}")
 
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, check=True)
+    card = smi.stdout.strip().splitlines()[0]
+
     t0 = time.perf_counter()
     _build.build_all()
     print(f"build: {', '.join(_build.sources())} in "
           f"{time.perf_counter() - t0:.1f} s")
 
     report = {name: dict(name=name, route="cuda", source=k["source"],
-                         replaces=k["replaces"], launches=0)
+                         replaces=k["replaces"], launches=0, by_path={})
               for name, k in KERNELS.items()}
     check_kernels(report)
-    # The top-level numbers of a kernel are those at the 8-node path's
-    # shapes where it runs there (scatter runs on the 1-node path only);
-    # ``by_path`` keeps every path's.
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(4)
+    check_flash(report, gen)
+    check_paged(report, gen)
+    rates = check_stream_passes(report, gen)
+    print(f"stream local rates, MiB/s ({card}):",
+          json.dumps({k: round(v, 1) for k, v in rates.items()}))
+    # The top-level numbers of a kernel are those of its headline
+    # measurement (the 8-node path's shapes where it runs there); ``by_path``
+    # keeps every measurement and path.
     for name, r in report.items():
-        path = "8-node" if "8-node" in r["by_path"] else "1-node"
-        r.update({k: v for k, v in r["by_path"][path].items()
+        r.update({k: v for k, v in
+                  r["by_path"][KERNELS[name]["headline"]].items()
                   if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
                            "bound_by", "library_ms")})
-    full_width(report)
+    t_phase = time.perf_counter()
+    cfg, params, gen = full_params()
+    full_width(report, cfg, params, gen)
     reduced_f32()
+    print(f"decode phases: {time.perf_counter() - t_phase:.1f} s")
+    t_phase = time.perf_counter()
+    forward_phase(report, cfg, params)
+    del params
+    torch.cuda.empty_cache()
+    forward_reduced_f32()
+    stream_bridge(report)
+    print(f"forward and stream phases: {time.perf_counter() - t_phase:.1f} s")
     programs_swap()
     print(f"smoke: {time.perf_counter() - t0:.1f} s after the build started")
 
+    for name, k in KERNELS.items():
+        if not report[name]["launches"]:
+            raise AssertionError(f"no path launched {name}")
     print(json.dumps({"kernels": list(report.values())}))
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -107,6 +107,32 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed (cudaError_t {err})")
 
 
+def on_cpu(what: str, *xs: torch.Tensor, aligned: bool = True) -> bool:
+    """Where a wrapper's operands lie: True when all are CPU tensors (the
+    plain version runs), False when all are contiguous tensors on the
+    current CUDA device, 16-byte aligned where ``aligned`` says the kernel
+    needs it (the kernel launches); raises on anything else, a mix of
+    devices first."""
+    dev = xs[0].device
+    if any(x.device != dev for x in xs):
+        devices = sorted({str(x.device) for x in xs})
+        raise ValueError(f"{what}: operands on {devices}; all must lie on "
+                         f"one device")
+    if dev.type == "cpu":
+        return True
+    if dev.type != "cuda":
+        raise ValueError(f"{what}: operands on {dev}; the kernel takes CUDA "
+                         f"tensors and the plain version CPU tensors")
+    if dev.index != torch.cuda.current_device():
+        raise ValueError(f"{what}: operands on {dev}, current device is "
+                         f"cuda:{torch.cuda.current_device()}")
+    if any(not x.is_contiguous() for x in xs):
+        raise ValueError(f"{what}: operands must be contiguous")
+    if aligned and any(x.data_ptr() % 16 for x in xs):
+        raise ValueError(f"{what}: operands must be 16-byte aligned")
+    return False
+
+
 def stream_of(t: torch.Tensor) -> int:
     """Handle of PyTorch's current stream on ``t``'s device."""
     return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,4 +1,5 @@
-"""Model assembly, dense decode: parameters, decode state and one decode step.
+"""Model assembly, dense models: parameters, the sequence forward (prefill /
+scoring), decode state and one decode step.
 
 The port's parameters are a plain dict whose ``layers`` entry is a Python
 list with one dict per layer (the reference stacks layers for
@@ -6,8 +7,8 @@ list with one dict per layer (the reference stacks layers for
 Every weight keeps the reference's ``[in, out]`` layout, so ``x @ w``
 computes the reference's ``einsum("bd,de->be")``.
 
-Only attention layers with a dense FFN decode here; MoE, cross-attention
-and the recurrent blocks come with a later slice of the port.
+Only attention layers with a dense FFN run here; MoE, cross-attention,
+the encoder and the recurrent blocks come with a later slice of the port.
 """
 from __future__ import annotations
 
@@ -74,6 +75,70 @@ def init_params(cfg: ModelConfig, gen: torch.Generator, *,
 
 
 # ---------------------------------------------------------------------------
+# Sequence forward (prefill / scoring)
+# ---------------------------------------------------------------------------
+
+def apply_ffn(cfg: ModelConfig, bp: dict, x: torch.Tensor) -> torch.Tensor:
+    """Dense or GLU FFN with its pre-norm and residual; x: [..., d]."""
+    if cfg.d_ff <= 0:
+        return x
+    h = layers.apply_norm(cfg.norm, x, bp["norm2"])
+    act = layers.act_fn(cfg.act)
+    up = h @ bp["ffn"]["wi"]
+    if cfg.glu:
+        up = act(h @ bp["ffn"]["wg"]) * up
+    else:
+        up = act(up)
+    return x + up @ bp["ffn"]["wo"]
+
+
+def apply_block(cfg: ModelConfig, kind: str, bp: dict, x: torch.Tensor, *,
+                causal: bool = True) -> torch.Tensor:
+    """One attention block over a sequence; x: [B, S, d]."""
+    h = layers.apply_norm(cfg.norm, x, bp["norm1"])
+    q, k, v = attention.qkv(cfg, bp["attn"], h)
+    att = attention.attend_train(cfg, kind, q, k, v, causal=causal)
+    x = x + attention.project_out(cfg, bp["attn"], att)
+    return apply_ffn(cfg, bp, x)
+
+
+def _embed_inputs(cfg: ModelConfig, params: Any, batch: dict) -> torch.Tensor:
+    if batch.get("embeds") is not None:
+        return batch["embeds"].to(layers.torch_dtype(cfg.dtype))
+    x = layers.embed(batch["tokens"], params["embed"])
+    return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+
+
+def _logits(cfg: ModelConfig, params: Any, x: torch.Tensor) -> torch.Tensor:
+    """Final norm and the float32 unembedding, sliced to the vocabulary."""
+    x = layers.apply_norm(cfg.norm, x, params["out_norm"])
+    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
+    logits = layers.unembed(x, head, cfg.logit_softcap)
+    if cfg.padded_vocab != cfg.vocab_size:
+        logits = logits[..., : cfg.vocab_size]
+    return logits
+
+
+def forward(cfg: ModelConfig, params: Any,
+            batch: dict) -> tuple[torch.Tensor, dict]:
+    """Sequence forward: batch ``{"tokens": i32[B, S]}`` (or ``"embeds"``
+    [B, S, d]) -> (logits f32[B, S, V], aux metrics).
+
+    Every attention layer runs the flash kernel (causal, windowed on
+    sliding-window layers).  The reference scans stacked layer periods and
+    takes ``remat`` (activation checkpointing for its backward) and
+    ``attn_impl`` (Pallas kernel or chunked XLA flash); the port loops over
+    ``params["layers"]``, runs forward only and has one kernel, so neither
+    argument exists here.  ``aux`` stays empty: only MoE layers fill it.
+    """
+    _check_supported(cfg)
+    x = _embed_inputs(cfg, params, batch)
+    for kind, bp in zip(cfg.layers, params["layers"]):
+        x = apply_block(cfg, kind, bp, x)
+    return _logits(cfg, params, x), {}
+
+
+# ---------------------------------------------------------------------------
 # Decode
 # ---------------------------------------------------------------------------
 
@@ -94,19 +159,6 @@ def init_decode_state(cfg: ModelConfig, batch: int, cache_ops) -> dict:
     return state
 
 
-def apply_ffn_step(cfg: ModelConfig, bp: dict, x: torch.Tensor) -> torch.Tensor:
-    if cfg.d_ff <= 0:
-        return x
-    h = layers.apply_norm(cfg.norm, x, bp["norm2"])
-    act = layers.act_fn(cfg.act)
-    up = h @ bp["ffn"]["wi"]
-    if cfg.glu:
-        up = act(h @ bp["ffn"]["wg"]) * up
-    else:
-        up = act(up)
-    return x + up @ bp["ffn"]["wo"]
-
-
 def apply_block_step(cfg: ModelConfig, kind: str, bp: dict, x: torch.Tensor,
                      st: Any, lengths: torch.Tensor, cache_ops,
                      shared: Any = None) -> tuple[torch.Tensor, Any]:
@@ -116,7 +168,7 @@ def apply_block_step(cfg: ModelConfig, kind: str, bp: dict, x: torch.Tensor,
     att, st = cache_ops.append_and_attend(cfg, st, shared, lengths, q,
                                           k_new, v_new, window=window)
     x = x + attention.project_out_step(cfg, bp["attn"], att)
-    return apply_ffn_step(cfg, bp, x), st
+    return apply_ffn(cfg, bp, x), st
 
 
 def decode_step(cfg: ModelConfig, params: Any, state: dict,
@@ -135,12 +187,8 @@ def decode_step(cfg: ModelConfig, params: Any, state: dict,
         x, st = apply_block_step(cfg, kind, bp, x, st, lengths, cache_ops,
                                  shared)
         new_layers.append(st)
-    x = layers.apply_norm(cfg.norm, x, params["out_norm"])
-    head = params["embed"] if cfg.tie_embeddings else params["lm_head"]
-    logits = layers.unembed(x, head, cfg.logit_softcap)
-    if cfg.padded_vocab != cfg.vocab_size:
-        logits = logits[..., : cfg.vocab_size]
-    return logits, dict(state, layers=new_layers, lengths=lengths + 1)
+    return (_logits(cfg, params, x),
+            dict(state, layers=new_layers, lengths=lengths + 1))
 
 
 # ---------------------------------------------------------------------------

@@ -10,6 +10,10 @@ import torch
 
 from repro_torch.kernels import bridge_attention as ba
 from repro_torch.kernels import bridge_gather as bg
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.kernels import paged_attention as pa
+from repro_torch.kernels import stream as st
+from repro_torch.models.flash import attention_ref
 
 
 @pytest.fixture
@@ -128,3 +132,97 @@ def test_push_commit_kernel_matches_plain(cuda, dtype, channels):
     bg.push_commit_plain(want.view(n * ppn, -1), slots,
                          data.view(n, d_rows, -1), base, channels, cb)
     assert torch.equal(got, want)
+
+
+# flash: (B, Sq, Sk, H, kv, hd, causal, window, q_offset)
+FLASH = [
+    (2, 256, 256, 32, 8, 128, True, 0, 0),
+    (1, 200, 200, 4, 2, 64, False, 0, 0),
+    (1, 300, 300, 4, 2, 64, True, 100, 0),
+    (1, 128, 384, 4, 4, 64, True, 0, 256),
+    (1, 77, 130, 4, 1, 120, True, 0, 0),
+    (1, 96, 96, 4, 1, 256, True, 0, 0),
+    (1, 40, 40, 6, 3, 8, True, 0, -3),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal,window,q_offset", FLASH)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kv, hd, causal,
+                                    window, q_offset):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
+    k = torch.randn((b, sk, kv, hd), generator=gen, device=cuda).to(dtype)
+    v = torch.randn((b, sk, kv, hd), generator=gen, device=cuda).to(dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    before = fa.flash_attention.launches
+    got = fa.flash_attention(q, k, v, **kw)
+    assert fa.flash_attention.launches == before + 1
+    want = attention_ref(q, k, v, **kw)
+    tol = 2e-5 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,h,kv,hd,t", [
+    (torch.bfloat16, 32, 8, 128, 16),
+    (torch.float32, 8, 2, 64, 16),
+    (torch.float32, 4, 1, 128, 8),
+])
+def test_paged_kernel_matches_plain(cuda, dtype, h, kv, hd, t):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(6)
+    b, mp = 8, 16
+    slots = b * mp + 5
+    kp = torch.randn((slots, t, kv, hd), generator=gen, device=cuda).to(dtype)
+    vp = torch.randn((slots, t, kv, hd), generator=gen, device=cuda).to(dtype)
+    table = torch.randperm(slots, generator=gen, device=cuda)[:b * mp].view(
+        b, mp).to(torch.int32)
+    table[2, 1] = -1                       # reads slot 0
+    table[4, 0] = slots + 9                # reads the last slot
+    lengths = torch.tensor([mp * t, 0, 3 * t + 5, t - 1, 2 * t, 7 * t + 1,
+                            mp * t + 40, 5], dtype=torch.int32, device=cuda)
+    q = torch.randn((b, h, hd), generator=gen, device=cuda).to(dtype)
+    got = pa.paged_attention(q, kp, vp, table, lengths, max_pages=mp)
+    want = pa.paged_attention_plain(q, kp, vp, table, lengths, max_pages=mp)
+    tol = 3e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    assert not got[1].any() and not got[3].any() and not got[7].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1, 7, 1003, 128 * 1000 + 5])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_kernels_bit_exact(cuda, dtype, n):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(7)
+    a, b, c = (torch.randn((n,), generator=gen, device=cuda).to(dtype)
+               for _ in range(3))
+    pairs = [(st.stream_copy(c), st.stream_copy_plain(c)),
+             (st.stream_scale(c, 3.0), st.stream_scale_plain(c, 3.0)),
+             (st.stream_add(a, b), st.stream_add_plain(a, b)),
+             (st.stream_triad(b, c, 3.0), st.stream_triad_plain(b, c, 3.0))]
+    # an unaligned view takes the kernel's scalar loop
+    pairs.append((st.stream_triad(b[1:], c[1:], 0.7),
+                  st.stream_triad_plain(b[1:], c[1:], 0.7)))
+    for got, want in pairs:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_new_wrappers_reject_device_mix_and_grad(cuda):
+    q = torch.randn((1, 16, 4, 64), device=cuda)
+    k = torch.randn((1, 16, 2, 64), device=cuda)
+    with pytest.raises(ValueError, match="one device"):
+        fa.flash_attention(q, k.cpu(), k)
+    with pytest.raises(RuntimeError, match="backward"):
+        fa.flash_attention(q.requires_grad_(), k, k)
+    with pytest.raises(ValueError, match="one device"):
+        st.stream_add(torch.zeros(8, device=cuda), torch.zeros(8))
+    pool = torch.zeros((4, 8, 2, 64), device=cuda)
+    table = torch.zeros((1, 2), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="one device"):
+        pa.paged_attention(q[:, 0], pool, pool, table,
+                           torch.zeros((1,), dtype=torch.int32), max_pages=2)

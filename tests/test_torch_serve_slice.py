@@ -259,7 +259,9 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "TOOLKIT_NVCC", str(tmp_path / "no-nvcc"))
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_loaded", {})
-    assert _build.sources() == ["bridge_attention", "bridge_gather"]
+    assert _build.sources() == ["bridge_attention", "bridge_gather",
+                               "flash_attention", "paged_attention",
+                               "stream"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("bridge_gather", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
