@@ -14,8 +14,11 @@ prints no result):
               round of the 8-node path), bit-exact, and the streaming
               accumulate within float32 rounding; flash attention at the
               sequence forward's shapes (B 8, S 1024, 32/8 heads of 128,
-              causal, bf16) and at the mask and head-size cases (float32
-              2e-5, bf16 2e-2); paged decode attention at the serving
+              causal: the bf16 tensor-core kernel, and the float32
+              CUDA-core kernel on the same inputs in float32) and at the
+              mask and head-size cases, a row that sees no key among them
+              (float32 2e-5, bf16 2e-2; each call must launch the variant
+              its dtype names); paged decode attention at the serving
               decode shapes (3e-5 / 3e-2); the STREAM passes at the paper's
               10,000,000 elements and at 1,003, bit-exact.  Times of
               kernel, plain version and one equivalent PyTorch call, beside
@@ -37,9 +40,11 @@ prints no result):
               identical tokens and logits within 1e-4;
 5. forward  — the same full-width weights: the sequence forward timed at
               B 8 x S 1024 (median of 5 after a warm-up), exactly one flash
-              launch per layer; its logits over 200 random tokens held to
-              teacher-forced ``local`` decode within 5e-2 of the largest
-              logit, and in float32 at the reduced size within 1e-4;
+              launch per layer, every one the bf16 tensor-core kernel; its
+              logits over 200 random tokens held to teacher-forced
+              ``local`` decode within 5e-2 of the largest logit, and in
+              float32 at the reduced size within 1e-4 (there every flash
+              launch is the float32 CUDA-core kernel);
 6. stream   — triad over 65,536 float32 elements pulled as 32 pages of
               2048 through the 4-node bridge (a pool blocked over 4 memory
               nodes, budget 8) is bit-identical to triad on the local
@@ -120,7 +125,10 @@ NODES = 8                        # memory nodes of the N-node path
 PATHS = {"1-node": 1, f"{NODES}-node": NODES}
 
 # ``paths``: the decode paths of phase 3 that launch the kernel; ``headline``:
-# the measurement of phase 2 whose numbers stand at the top of its row.
+# the measurement of phase 2 whose numbers stand at the top of its row;
+# ``variant``: where one wrapper launches two kernels (flash attention: the
+# bf16 tensor-core kernel and the float32 CUDA-core kernel), the kernel
+# whose launches the row counts.
 KERNELS = {
     "gather_pages": dict(
         fns=(bg.gather_pages,),
@@ -153,10 +161,15 @@ KERNELS = {
         replaces="src/repro/kernels/paged_attention.py:117", paths=(),
         headline="api"),
     "flash_attention": dict(
-        fns=(fa.flash_attention,),
-        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        fns=(fa.flash_attention,), variant=fa.WGMMA,
+        source="src/repro_torch/kernels/csrc/flash_attention_wgmma.cu",
         replaces="src/repro/kernels/flash_attention.py:109", paths=(),
         headline="forward"),
+    "flash_attention_f32": dict(
+        fns=(fa.flash_attention,), variant=fa.CUDA_CORES,
+        source="src/repro_torch/kernels/csrc/flash_attention.cu",
+        replaces="src/repro/kernels/flash_attention.py:109", paths=(),
+        headline="forward f32"),
     "stream": dict(
         fns=(st.stream_copy, st.stream_scale, st.stream_add, st.stream_triad),
         source="src/repro_torch/kernels/csrc/stream.cu",
@@ -206,10 +219,13 @@ def reset_launches() -> None:
     for k in KERNELS.values():
         for fn in k["fns"]:
             fn.launches = 0
+            for variant in getattr(fn, "launches_by_kernel", {}):
+                fn.launches_by_kernel[variant] = 0
 
 
 def read_launches() -> dict:
-    return {name: sum(fn.launches for fn in k["fns"])
+    return {name: sum(fn.launches_by_kernel[k["variant"]] if "variant" in k
+                      else fn.launches for fn in k["fns"])
             for name, k in KERNELS.items()}
 
 
@@ -419,10 +435,10 @@ def check_kernels(report: dict, dev="cuda") -> None:
            note=", channels=1")
 
 
-def visible_pairs(sq: int, sk: int, causal: bool, window: int,
-                  q_offset: int) -> int:
-    """(query, key) pairs the masks leave visible: what the kernel's two
-    products must compute."""
+def visible_mask(sq: int, sk: int, causal: bool, window: int,
+                 q_offset: int) -> torch.Tensor:
+    """[Sq, Sk] bool: the (query, key) pairs the masks leave visible, what
+    the kernel's two products must compute."""
     q_pos = torch.arange(sq)[:, None] + q_offset
     k_pos = torch.arange(sk)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool)
@@ -430,70 +446,109 @@ def visible_pairs(sq: int, sk: int, causal: bool, window: int,
         mask &= k_pos <= q_pos
     if window > 0:
         mask &= q_pos - k_pos < window
-    return int(mask.sum())
+    return mask
 
 
 # flash checks beside the forward's shapes: (B, Sq, Sk, H, kv, hd, causal,
-# window, q_offset); float32 and bf16 each
+# window, q_offset); float32 and bf16 each.  The last case leaves its first
+# 40 rows no key to see (q_offset -40).
 FLASH_CASES = [
     (2, 200, 200, 32, 8, 128, False, 0, 0),
     (1, 300, 300, 32, 8, 128, True, 100, 0),
     (1, 128, 384, 32, 8, 128, True, 0, 256),
     (1, 256, 256, 4, 1, 64, True, 0, 0),
     (1, 256, 256, 4, 1, 120, True, 0, 0),
+    (1, 256, 256, 4, 1, 192, True, 0, 0),
     (1, 256, 256, 4, 1, 256, True, 0, 0),
+    (1, 64, 64, 4, 2, 64, True, 16, -40),
 ]
+# The two kernels behind the one wrapper: (report row, measurement, kernel,
+# peak rate of the products' input type).  float32 products run on the CUDA
+# cores (67 TFLOP/s), bf16 on the tensor cores.
+FLASH_ROWS = {torch.bfloat16: ("flash_attention", "forward", fa.WGMMA,
+                               BF16_FLOP_PER_S),
+              torch.float32: ("flash_attention_f32", "forward f32",
+                              fa.CUDA_CORES, F32_FLOP_PER_S)}
 
 
 def check_flash(report: dict, gen, dev="cuda") -> None:
-    """Flash attention against its plain version: timed at the sequence
-    forward's shapes (B 8, S 1024, 32/8 heads of 128, causal, bf16), then
-    the mask and head-size cases."""
+    """Flash attention against its plain version: both kernels timed at the
+    sequence forward's shapes (B 8, S 1024, 32/8 heads of 128, causal; the
+    bf16 tensor-core kernel on bf16 inputs, the float32 CUDA-core kernel on
+    the same inputs in float32), then the mask and head-size cases.  Every
+    call must launch the kernel its dtype names, once."""
     def inputs(b, sq, sk, h, kv, hd, dtype):
         return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
                      for shape in ((b, sq, h, hd), (b, sk, kv, hd),
                                    (b, sk, kv, hd)))
 
     def error(q, k, v, dtype_name, **kw):
+        kernel = FLASH_ROWS[q.dtype][2]
+        before = dict(fa.flash_attention.launches_by_kernel)
         got = fa.flash_attention(q, k, v, **kw)
+        after = fa.flash_attention.launches_by_kernel
+        if (after[kernel] != before[kernel] + 1
+                or sum(after.values()) != sum(before.values()) + 1):
+            raise AssertionError(f"flash_attention {dtype_name} launched "
+                                 f"{after} after {before}, not one "
+                                 f"{kernel}")
         want = attention_ref(q, k, v, **kw)
         err = float((got.float() - want.float()).abs().max())
         if not err <= FLASH_TOL[dtype_name]:
             raise AssertionError(f"flash_attention {list(q.shape)} {kw} "
                                  f"{dtype_name} differs from its plain "
                                  f"version by {err:.3g}")
-        return err
+        return err, got
 
     b, s, h, kv, hd = 8, 1024, 32, 8, 128
-    q, k, v = inputs(b, s, s, h, kv, hd, torch.bfloat16)
-    err = error(q, k, v, "bfloat16", causal=True)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
-    pairs = visible_pairs(s, s, True, 0, 0)
-    record(report, "flash_attention", "forward", err=err,
-           ms=cuda_ms(lambda: fa.flash_attention(q, k, v)),
-           plain_ms=cuda_ms(lambda: attention_ref(q, k, v), iters=20),
-           library_ms=cuda_ms(
-               lambda: torch.nn.functional.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=True, enable_gqa=True)),
-           nbytes=2 * q.numel() * 2 + 2 * k.numel() * 2,
-           flops=4 * b * h * hd * pairs, flop_rate=BF16_FLOP_PER_S,
-           note=", B 8 S 1024 causal bf16",
-           dev_us=device_us(lambda: fa.flash_attention(q, k, v),
-                            "flash_fwd_kernel", calls=10))
-    del q, k, v, qt, kt, vt
-    worst = {}
+    pairs = int(visible_mask(s, s, True, 0, 0).sum())
+    q16, k16, v16 = inputs(b, s, s, h, kv, hd, torch.bfloat16)
+    for dtype, name in ((torch.bfloat16, "bfloat16"),
+                        (torch.float32, "float32")):
+        row, path, kernel, rate = FLASH_ROWS[dtype]
+        q, k, v = (x.to(dtype) for x in (q16, k16, v16))
+        err, _ = error(q, k, v, name, causal=True)
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        iters = 200 if dtype == torch.bfloat16 else 50
+        record(report, row, path, err=err,
+               ms=cuda_ms(lambda: fa.flash_attention(q, k, v), iters=iters),
+               plain_ms=cuda_ms(lambda: attention_ref(q, k, v), iters=20),
+               library_ms=cuda_ms(
+                   lambda: torch.nn.functional.scaled_dot_product_attention(
+                       qt, kt, vt, is_causal=True, enable_gqa=True),
+                   iters=iters),
+               nbytes=2 * q.numel() * q.element_size()
+               + 2 * k.numel() * k.element_size(),
+               flops=4 * b * h * hd * pairs, flop_rate=rate,
+               note=f", B 8 S 1024 causal {name}",
+               dev_us=device_us(lambda: fa.flash_attention(q, k, v), kernel,
+                                calls=10))
+        del q, k, v, qt, kt, vt
+    del q16, k16, v16
+    worst, zero_rows = {}, 0
     for case in FLASH_CASES:
         b, sq, sk, h, kv, hd, causal, window, q_offset = case
+        # the rows that see no key: the kernel must give exact zeros
+        dead = ~visible_mask(sq, sk, causal, window, q_offset).any(1)
         for dtype, name in ((torch.float32, "float32"),
                             (torch.bfloat16, "bfloat16")):
             q, k, v = inputs(b, sq, sk, h, kv, hd, dtype)
-            err = error(q, k, v, name, causal=causal, window=window,
-                        q_offset=q_offset)
+            err, got = error(q, k, v, name, causal=causal, window=window,
+                             q_offset=q_offset)
+            if got[:, dead.to(dev)].any():
+                raise AssertionError(f"flash_attention {case} {name}: a row "
+                                     f"that sees no key is not zero")
+            zero_rows += int(dead.sum()) * b * h
             worst[name] = max(worst.get(name, 0.0), err)
-    report["flash_attention"]["max_abs_err_other_cases"] = worst
+    if not zero_rows:
+        raise AssertionError("no flash case has a row that sees no key")
+    report["flash_attention"]["max_abs_err_other_cases"] = worst["bfloat16"]
+    report["flash_attention_f32"]["max_abs_err_other_cases"] = \
+        worst["float32"]
     print(f"kernel flash_attention: {len(FLASH_CASES)} more cases x 2 dtypes "
-          f"(not causal, window 100, q_offset 256, hd 64/120/256 with kv 1) "
-          f"within {FLASH_TOL}: worst {worst}")
+          f"(not causal, window 100, q_offset 256, hd 64/120/192/256 with "
+          f"kv 1, {zero_rows} rows that see no key, all zero) within "
+          f"{FLASH_TOL}: worst {worst}")
 
 
 def check_paged(report: dict, gen, dev="cuda") -> None:
@@ -699,7 +754,8 @@ def profile_step(label: str, run_step) -> dict:
     ours = {k: [(e.count, e.self_device_time_total / 1e3 / e.count)
                 for e in kernels if k in e.key]
             for k in ("gather_rows", "pull_commit_rows", "push_commit_rows",
-                      "scatter_rows", "stream_kernel", "flash_fwd_kernel")}
+                      "scatter_rows", "stream_kernel", fa.CUDA_CORES,
+                      fa.WGMMA)}
     out = dict(wall_ms=wall, device_ms=device,
                device_busy_share=device / wall if device else None,
                kernel_launches=sum(e.count for e in kernels),
@@ -959,9 +1015,9 @@ def forward_vs_decode(cfg, params, tokens, dtype, dev):
 
 def forward_phase(report: dict, cfg, params, dev="cuda") -> dict:
     """Full-width granite-3-8b sequence forward: timed at B 8 x S 1024 with
-    the flash kernel's launches counted (one per layer), then held to
-    teacher-forced local decode over 200 tokens, with a planted mask fault
-    that the check must reject."""
+    the flash kernel's launches counted (one per layer, every one the bf16
+    tensor-core kernel), then held to teacher-forced local decode over 200
+    tokens, with a planted mask fault that the check must reject."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
     b, s, repeats = FORWARD["batch"], FORWARD["seq"], FORWARD["repeats"]
@@ -1024,10 +1080,11 @@ def forward_phase(report: dict, cfg, params, dev="cuda") -> dict:
     return out
 
 
-def forward_reduced_f32(dev="cuda") -> dict:
+def forward_reduced_f32(report: dict, dev="cuda") -> dict:
     """Reduced granite-3-8b in float32: the forward against teacher-forced
     local decode at 1e-4 per position; the planted mask fault must break
-    that limit."""
+    that limit.  Each of the two forwards launches one float32 CUDA-core
+    flash kernel per layer, and nothing else of the port's kernels."""
     cfg = dataclasses.replace(configs.get_reduced("granite-3-8b"),
                               dtype="float32")
     gen = torch.Generator(device=dev)
@@ -1035,8 +1092,16 @@ def forward_reduced_f32(dev="cuda") -> dict:
     params = transformer.init_params(cfg, gen, device=dev)
     tokens = torch.randint(0, cfg.vocab_size, (4, 48), generator=gen,
                            device=dev, dtype=torch.int32)
+    reset_launches()
     fwd, local, fault = forward_vs_decode(cfg, params, tokens, torch.float32,
                                           dev)
+    counts = read_launches()
+    want = dict.fromkeys(KERNELS, 0)
+    want["flash_attention_f32"] = 2 * cfg.num_layers
+    if counts != want:
+        raise AssertionError(f"reduced f32 forward launched {counts}, "
+                             f"expected {want}")
+    count_path(report, "forward f32", counts)
     torch.testing.assert_close(fwd, local, **REDUCED_LOGIT_TOL)
     if torch.allclose(fault, local, **REDUCED_LOGIT_TOL):
         raise AssertionError("reduced f32: the planted mask fault passes the "
@@ -1221,7 +1286,7 @@ def main() -> int:
     forward_phase(report, cfg, params)
     del params
     torch.cuda.empty_cache()
-    forward_reduced_f32()
+    forward_reduced_f32(report)
     stream_bridge(report)
     print(f"forward and stream phases: {time.perf_counter() - t_phase:.1f} s")
     programs_swap()

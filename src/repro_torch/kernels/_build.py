@@ -7,8 +7,9 @@ tensor's device alone decides.
 
 Each ``csrc/<name>.cu`` is a plain C interface compiled by ``nvcc`` into
 ``build/repro_torch_kernels/lib<name>-<hash>.so`` at the repository root
-(the hash is of the source, so an edited source builds anew) the first time
-a kernel of it launches, and is loaded with ``ctypes``.  Nothing is built
+(the hash is of the source, every shared header ``csrc/*.cuh`` and the
+compiler flags, so an edit to any of them builds anew) the first time a
+kernel of it launches, and is loaded with ``ctypes``.  Nothing is built
 when a module is imported.
 """
 from __future__ import annotations
@@ -48,8 +49,10 @@ def sources() -> list[str]:
 
 
 def _lib_path(name: str) -> Path:
-    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        digest.update(path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 
 def _start(name: str):

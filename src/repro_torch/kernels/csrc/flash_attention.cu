@@ -1,21 +1,23 @@
-// Flash attention, forward, for Hopper (sm_90a).
+// Flash attention, forward, float32, on the CUDA cores (sm_90a).
 //
 // Replaces the TPU kernel of src/repro/kernels/flash_attention.py,
-// flash_attention (_flash_fwd_kernel): blockwise online-softmax attention of
-// q [B, Sq, H, hd] over k, v [B, Sk, kv, hd] with GQA (head h reads kv head
-// h / (H / kv)), masks on absolute positions (q_pos = row + q_offset;
-// k_pos < Sk; causal: k_pos <= q_pos; window > 0: q_pos - k_pos < window),
-// the softmax state (m, l, acc) in float32, acc / max(l, 1e-30) at the end
-// and the output in q's dtype.  As in the TPU kernel (flash_attention.py
-// lines 44-46) the inputs are widened to float32 and every product is a
-// float32 product.
+// flash_attention (_flash_fwd_kernel), for float32 inputs: blockwise
+// online-softmax attention of q [B, Sq, H, hd] over k, v [B, Sk, kv, hd]
+// with GQA (head h reads kv head h / (H / kv)), masks on absolute positions
+// (q_pos = row + q_offset; k_pos < Sk; causal: k_pos <= q_pos; window > 0:
+// q_pos - k_pos < window), the softmax state (m, l, acc) in float32,
+// acc / max(l, 1e-30) at the end and the output in q's dtype.  As in the
+// TPU kernel (flash_attention.py lines 44-46) every product is a float32
+// product: the reference's float32 limit (2e-5) is beyond TF32 or bf16
+// tensor-core tiles, so float32 stays on the CUDA cores.  bf16 inputs take
+// the tensor-core kernel of flash_attention_wgmma.cu.
 //
 // What bounds it: operations.  At the sequence forward's shapes (B 8,
 // S 1024, H 32, kv 8, hd 128, causal) the two products take
 // 4 B H hd S(S+1)/2 = 68.8 GFLOP on 168 MB of q, k, v and out: against
 // bf16 tensor cores (989 TFLOP/s) that is 0.070 ms, and the bytes give
-// 0.050 ms.  This kernel computes in float32 on the CUDA cores (67 TFLOP/s
-// at most, so 1.0 ms at best); wgmma on bf16 tiles is a later change.
+// 0.050 ms.  In float32 on the CUDA cores (67 TFLOP/s at most) the same
+// work takes 1.0 ms at best.
 //
 // Design.  One block per (batch, kv head, tile of 64 query rows), where the
 // rows of a kv head are its g = H / kv query heads at every position,
@@ -33,11 +35,10 @@
 // tx + 16 j (j < NJ = ceil(hd / 16)); its rows' m and l live in its
 // registers (each held by the 16 threads of a half-warp, reduced with
 // shuffles), its 4 x NJ accumulators too.  Q (64 x hd), K (32 x hd) and
-// V (32 x hd) tiles are staged in shared memory as float32 with 16-byte
-// vector loads from device memory; the score loop reads them as float4.
+// V (32 x hd) tiles are staged in shared memory with 16-byte vector loads
+// from device memory; the score loop reads them as float4.
 // At hd = 256 the block takes 141 KB of shared memory (hence the opt-in
 // above 48 KB).
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -55,19 +56,9 @@ template <>
 struct Vec<float> {
   static constexpr int kN = 4;  // elements in 16 bytes
 };
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int kN = 8;
-};
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 // One 16-byte vector of T at src (16-byte aligned), widened into dst.
 template <typename T>
@@ -293,21 +284,17 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it).  hd is a
-// multiple of 8 up to 256; every pointer is 16-byte aligned.
-extern "C" int repro_flash_attention(int dtype, const void* q, const void* k,
-                                     const void* v, void* o, int b, int sq,
-                                     int sk, int h, int kvh, int hd,
-                                     int causal, int window, int q_offset,
-                                     float scale, void* stream) {
+// q, k, v and o float32; hd is a multiple of 8 up to 256; every pointer
+// is 16-byte aligned.
+extern "C" int repro_flash_attention_f32(const void* q, const void* k,
+                                         const void* v, void* o, int b,
+                                         int sq, int sk, int h, int kvh,
+                                         int hd, int causal, int window,
+                                         int q_offset, float scale,
+                                         void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd % 8 != 0 || hd < 8 || hd > 256 || kvh < 1 || h % kvh != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return launch<float>(q, k, v, o, b, sq, sk, h, kvh, hd, causal, window,
-                         q_offset, scale, s);
-  if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, o, b, sq, sk, h, kvh, hd, causal,
-                                 window, q_offset, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch<float>(q, k, v, o, b, sq, sk, h, kvh, hd, causal, window,
+                       q_offset, scale, s);
 }

@@ -7,24 +7,67 @@ head ``h // (H // kv)``), causal and sliding-window masks on absolute
 positions (``q_offset`` is the position of q's first row), float32 softmax
 state, ``acc / max(l, 1e-30)`` at the end, the output in q's dtype.  A CPU
 tensor runs the plain version (:func:`repro_torch.models.flash.
-attention_ref`); a CUDA tensor launches ``csrc/flash_attention.cu`` (or
-raises).  The wrapper counts its launches in ``flash_attention.launches``.
+attention_ref`); a CUDA tensor launches one of two kernels, chosen by the
+dtype alone (:func:`variant`), or raises:
+
+- bfloat16: ``csrc/flash_attention_wgmma.cu`` (``flash_fwd_wgmma``), wgmma
+  on bf16 tiles staged by TMA, p rounded to bf16 before P·V;
+- float32: ``csrc/flash_attention.cu`` (``flash_fwd_kernel``), float32
+  products on the CUDA cores, as the reference's float32 limit needs.
+
+The wrapper counts every launch in ``flash_attention.launches`` and each
+kernel's in ``flash_attention.launches_by_kernel``.
 """
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import torch
 
 from repro_torch.kernels import _build
 from repro_torch.models.flash import attention_ref
 
+WGMMA = "flash_fwd_wgmma"          # the kernels' symbols, as profilers name them
+CUDA_CORES = "flash_fwd_kernel"
+_SOURCE = {WGMMA: "flash_attention_wgmma", CUDA_CORES: "flash_attention"}
 _SIGNATURES = {
-    "repro_flash_attention":
-        [ctypes.c_int] + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-        + [ctypes.c_float, ctypes.c_void_p],
+    WGMMA: {"repro_flash_attention_wgmma":
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
+            + [ctypes.c_float, ctypes.c_void_p]},
+    CUDA_CORES: {"repro_flash_attention_f32":
+                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
+                 + [ctypes.c_float, ctypes.c_void_p]},
 }
-_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+@dataclasses.dataclass(frozen=True)
+class Variant:
+    """Which kernel takes a call, and its tiles."""
+    kernel: str      # WGMMA or CUDA_CORES
+    hd_pad: int      # head dim as the kernel's shared-memory tiles hold it
+    key_tile: int    # keys a tile
+
+
+def variant(dtype: torch.dtype, hd: int) -> Variant:
+    """The kernel for q, k, v of ``dtype`` with head dim ``hd``.
+
+    bfloat16 takes the tensor-core kernel, hd padded with zeros to a
+    multiple of 64 (a 128-byte swizzled row), 128 keys a tile up to hd 128
+    and 64 beyond (the output alone then takes 96 or 128 registers a
+    thread); float32 takes the CUDA-core kernel (32 keys a tile, hd as it
+    is).  Nothing else decides, and neither gives way to the other.
+    """
+    if hd % 8 or not 8 <= hd <= 256:
+        raise ValueError(f"flash_attention: head_dim {hd} must be a multiple "
+                         f"of 8 up to 256")
+    if dtype == torch.bfloat16:
+        hd_pad = -(-hd // 64) * 64
+        return Variant(WGMMA, hd_pad, 128 if hd_pad <= 128 else 64)
+    if dtype == torch.float32:
+        return Variant(CUDA_CORES, hd, 32)
+    raise ValueError(f"flash_attention: q, k and v must share float32 or "
+                     f"bfloat16, got {dtype}")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -32,8 +75,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     q_offset: int = 0) -> torch.Tensor:
     """q: [B, Sq, H, hd]; k, v: [B, Sk, kv, hd] -> [B, Sq, H, hd].
 
-    ``hd`` is a multiple of 8 up to 256.  Any Sq and Sk: the kernel masks
-    the ragged edge itself.  The reference's ``bq``, ``bk`` and
+    ``hd`` is a multiple of 8 up to 256.  Any Sq and Sk: the kernels mask
+    the ragged edge themselves.  The reference's ``bq``, ``bk`` and
     ``interpret`` choose the TPU's tiling and interpreter and change no
     result; they do not exist here.  Forward only: while autograd records
     and an input requires grad this raises (the backward comes with the
@@ -60,19 +103,28 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if _build.on_cpu(what, q, k, v):
         return attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
-    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+    if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"{what}: q, k and v must share float32 or bfloat16,"
                          f" got {q.dtype}, {k.dtype}, {v.dtype}")
+    plan = variant(q.dtype, hd)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _build.load("flash_attention", _SIGNATURES)
-    _build.check(lib.repro_flash_attention(
-        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), b, sq, sk, h, kv, hd, int(bool(causal)), int(window),
-        int(q_offset), hd ** -0.5, _build.stream_of(q)), what)
+    lib = _build.load(_SOURCE[plan.kernel], _SIGNATURES[plan.kernel])
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
+            sk, h, kv, hd)
+    masks = (int(bool(causal)), int(window), int(q_offset), hd ** -0.5,
+             _build.stream_of(q))
+    if plan.kernel == WGMMA:
+        err = lib.repro_flash_attention_wgmma(*args, plan.hd_pad,
+                                              plan.key_tile, *masks)
+    else:
+        err = lib.repro_flash_attention_f32(*args, *masks)
+    _build.check(err, what)
     flash_attention.launches += 1
+    flash_attention.launches_by_kernel[plan.kernel] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_kernel = {WGMMA: 0, CUDA_CORES: 0}

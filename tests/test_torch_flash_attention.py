@@ -7,13 +7,16 @@ which on CPU tensors runs the plain version (``models.flash.
 attention_ref``).  Tolerances are the reference suite's: 2e-5 in float32
 for the shape sweep and 3e-5 for the mask cases (the online softmax sums in
 another order than the dense softmax), 2e-2 in bfloat16 (one rounding of
-the output).
+the output).  The bf16 tensor-core kernel adds one rounding, of p to bf16
+before P·V; its arithmetic, written densely here, is held to the JAX kernel
+at the same 2e-2.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro import configs as jconfigs
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 
@@ -139,3 +142,69 @@ def test_flash_never_falls_back_off_the_cpu():
     with pytest.raises(ValueError, match="one device"):
         tfa.flash_attention(torch.zeros((1, 8, 4, 16)), kv, kv)
     assert tfa.flash_attention.launches == 0
+    assert tfa.flash_attention.launches_by_kernel == {tfa.WGMMA: 0,
+                                                      tfa.CUDA_CORES: 0}
+
+
+def attention_p_bf16(q, k, v, *, causal=True, window=0, q_offset=0):
+    """The bf16 tensor-core kernel's arithmetic, densely (test-only):
+    float32 scores of the bf16 inputs, p = exp(s - m) with masked p 0, l
+    the float32 sum of p, p rounded to bf16 before P·V, acc / max(l, 1e-30)
+    rounded to bf16.  The kernel takes m as a running max over key tiles;
+    p's relative rounding is the same either way."""
+    b, sq, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, hd).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float()) * hd ** -0.5
+    mask = tflash._mask(torch.arange(sq) + q_offset,
+                        torch.arange(k.shape[1]), causal, window)
+    s = torch.where(mask, s, tflash.NEG_INF)
+    p = torch.where(mask, torch.exp(s - s.amax(-1, keepdim=True)), 0.0)
+    l = p.sum(-1).permute(0, 3, 1, 2)[..., None]          # [b, q, kv, g, 1]
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.bfloat16().float(), v.float())
+    return (o / l.clamp(min=1e-30)).reshape(b, sq, h, hd).bfloat16()
+
+
+@pytest.mark.parametrize("window,q_offset", [(0, 0), (64, 0), (16, -40)])
+def test_flash_p_rounded_to_bf16_matches_reference(window, q_offset):
+    """granite-3-8b's heads (32/8 of 128) at S 256: p rounded to bf16
+    before P·V stays within the bf16 limit of the JAX kernel (interpret
+    mode) and of the port's plain version; q_offset -40 leaves 40 rows no
+    key, which give zeros."""
+    arrays = make(7, 1, 256, 256, 32, 8, 128)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    got = attention_p_bf16(*(torch.from_numpy(a).bfloat16() for a in arrays),
+                           **kw).float()
+    plain, jax_kernel, _ = run_both(arrays, "bfloat16", **kw)
+    np.testing.assert_allclose(got.numpy(), jax_kernel, atol=TOL["bfloat16"])
+    np.testing.assert_allclose(got.numpy(), plain, atol=TOL["bfloat16"])
+    if q_offset < 0:
+        assert not got[:, :-q_offset].any() and got[:, -q_offset:].any()
+
+
+# bf16 head dim -> (padded head dim, keys a tile) of the tensor-core kernel.
+WGMMA_TILES = {8: (64, 128), 64: (64, 128), 120: (128, 128),
+               128: (128, 128), 192: (192, 64), 256: (256, 64)}
+CONFIG_HEAD_DIMS = {jconfigs.get_config(a).head_dim
+                    for a in jconfigs.lm_archs()}
+
+
+@pytest.mark.parametrize("hd", sorted(CONFIG_HEAD_DIMS | set(WGMMA_TILES)))
+def test_flash_variant_follows_the_dtype(hd):
+    """The dtype alone picks the kernel: bf16 the tensor-core kernel (hd
+    padded to a multiple of 64, 128 keys a tile up to hd 128, else 64),
+    float32 the CUDA-core kernel.  Every head size of the repo's configs
+    is in the table."""
+    assert tfa.variant(torch.bfloat16, hd) == tfa.Variant(tfa.WGMMA,
+                                                          *WGMMA_TILES[hd])
+    assert tfa.variant(torch.float32, hd) == tfa.Variant(tfa.CUDA_CORES, hd,
+                                                         32)
+
+
+def test_flash_variant_refuses_other_inputs():
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        tfa.variant(torch.float16, 128)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tfa.variant(torch.bfloat16, 12)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tfa.variant(torch.bfloat16, 264)

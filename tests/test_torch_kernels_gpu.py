@@ -143,6 +143,11 @@ FLASH = [
     (1, 77, 130, 4, 1, 120, True, 0, 0),
     (1, 96, 96, 4, 1, 256, True, 0, 0),
     (1, 40, 40, 6, 3, 8, True, 0, -3),
+    (1, 96, 130, 4, 1, 192, True, 0, 34),        # hd 192
+    (1, 1000, 1000, 8, 8, 128, True, 0, 0),      # ragged tiles, g = 1
+    (1, 200, 200, 64, 8, 128, True, 0, 0),       # g = 8
+    (1, 64, 64, 4, 2, 64, True, 16, -40),        # 40 rows see no key
+    (8, 1024, 1024, 32, 8, 128, True, 0, 0),     # the sequence forward's
 ]
 
 
@@ -151,18 +156,31 @@ FLASH = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kv, hd, causal,
                                     window, q_offset):
+    """bf16 launches the tensor-core kernel and float32 the CUDA-core one,
+    once each call; rows that see no key are exact zeros."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(5)
     q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
     k = torch.randn((b, sk, kv, hd), generator=gen, device=cuda).to(dtype)
     v = torch.randn((b, sk, kv, hd), generator=gen, device=cuda).to(dtype)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
+    kernel = fa.WGMMA if dtype == torch.bfloat16 else fa.CUDA_CORES
     before = fa.flash_attention.launches
+    by_kernel = dict(fa.flash_attention.launches_by_kernel)
     got = fa.flash_attention(q, k, v, **kw)
     assert fa.flash_attention.launches == before + 1
+    by_kernel[kernel] += 1
+    assert fa.flash_attention.launches_by_kernel == by_kernel
     want = attention_ref(q, k, v, **kw)
     tol = 2e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    q_pos = torch.arange(sq, device=cuda)[:, None] + q_offset
+    k_pos = torch.arange(sk, device=cuda)[None, :]
+    seen = (k_pos <= q_pos) if causal else torch.ones_like(q_pos - k_pos,
+                                                           dtype=torch.bool)
+    if window > 0:
+        seen &= q_pos - k_pos < window
+    assert not got[:, ~seen.any(1)].any()
 
 
 @pytest.mark.gpu

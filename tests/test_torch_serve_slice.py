@@ -260,12 +260,27 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_loaded", {})
     assert _build.sources() == ["bridge_attention", "bridge_gather",
-                               "flash_attention", "paged_attention",
-                               "stream"]
+                               "flash_attention", "flash_attention_wgmma",
+                               "paged_attention", "stream"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load("bridge_gather", {})
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
+
+
+def test_kernel_library_name_hashes_headers_and_flags(monkeypatch, tmp_path):
+    """An edit to a shared header or to the compiler flags names a new
+    library, so a stale build is never loaded."""
+    (tmp_path / "k.cu").write_text('#include "h.cuh"\n')
+    (tmp_path / "h.cuh").write_text("// one\n")
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    first = _build._lib_path("k")
+    assert _build._lib_path("k") == first
+    (tmp_path / "h.cuh").write_text("// two\n")
+    second = _build._lib_path("k")
+    assert second != first
+    monkeypatch.setattr(_build, "NVCC_FLAGS", _build.NVCC_FLAGS + ["-G"])
+    assert _build._lib_path("k") not in (first, second)
 
 
 def test_launcher_runs_on_cpu(capsys):
