@@ -20,9 +20,15 @@ prints no result):
               (float32 2e-5, bf16 2e-2; each call must launch the variant
               its dtype names); paged decode attention at the serving
               decode shapes (3e-5 / 3e-2); the STREAM passes at the paper's
-              10,000,000 elements and at 1,003, bit-exact.  Times of
-              kernel, plain version and one equivalent PyTorch call, beside
-              the bound;
+              10,000,000 elements and at 1,003, bit-exact; the two write
+              kernels also on whole-pool flushes (scatter at W = 1,024 with
+              FREE, out-of-pool and duplicate lanes; push_commit writing
+              every slot of 8 homes, channels 1, 2 and 4), bit-exact.
+              Times of kernel, plain version and one equivalent PyTorch
+              call, beside the bound; the write kernels' wrappers timed in
+              turns with their library call (median of five rounds), the
+              time of a call replayed from a CUDA graph of 100 calls and
+              where a wrapper call's host time goes;
 3. full     — granite-3-8b at full width and depth (40 layers, d_model 4096,
               32/8 heads, vocab 49155) in bf16 with weights from a seeded
               generator: batch 8, max_len 1024, page_tokens 16, budget 8,
@@ -71,6 +77,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import statistics
@@ -215,6 +222,56 @@ def device_us(fn, kernel: str, calls: int = 20) -> float:
     return sum(e.self_device_time_total for e in events) / launches
 
 
+def graph_ms(fn, calls: int = 100, replays: int = 20) -> float:
+    """Mean time of one call of ``fn`` when ``calls`` calls recorded in one
+    CUDA graph are replayed: the kernel without the host's issue time."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / (replays * calls)
+
+
+def host_us(fn, iters: int = 2000) -> float:
+    """Mean host time, in us, until one call of ``fn`` returns, over
+    ``iters`` calls (the card runs behind; each kernel takes less time on
+    it than its call takes on the host)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
+def host_breakdown(name: str, pool, wrapper, check, launch,
+                   library) -> dict:
+    """Where one wrapper call's host time goes: the whole call, its operand
+    checks, the raw stream getter, the bare C launch with its arguments
+    ready, and one library call, each timed alone on the host."""
+    out = dict(wrapper_us=host_us(wrapper), checks_us=host_us(check),
+               stream_us=host_us(lambda: _build.stream_of(pool)),
+               c_launch_us=host_us(launch), library_us=host_us(library))
+    print(f"host {name}:", json.dumps(out))
+    return out
+
+
 def reset_launches() -> None:
     for k in KERNELS.values():
         for fn in k["fns"]:
@@ -351,13 +408,24 @@ def check_kernels(report: dict, dev="cuda") -> None:
                if s >= 0 and s not in slots.tolist()[i + 1:]]
     lib_idx = slots[written].long()
     lib_data = data.view(w, -1)[written]
-    record(report, "scatter_pages", "1-node", err=0.0,
-           ms=cuda_ms(lambda: bg.scatter_pages(pool_k, slots, data)),
-           plain_ms=cuda_ms(lambda: bg.scatter_pages_plain(
-               pool_p.view(rows, -1), slots, data.view(w, -1))),
-           library_ms=cuda_ms(lambda: pool_p.view(rows, -1).index_copy_(
-               0, lib_idx, lib_data)),
-           nbytes=2 * len(written) * row_bytes + slots.numel() * 4)
+    scatter = functools.partial(bg.scatter_pages, pool_k, slots, data)
+    entry = record(
+        report, "scatter_pages", "1-node", err=0.0, ms=cuda_ms(scatter),
+        plain_ms=cuda_ms(lambda: bg.scatter_pages_plain(
+            pool_p.view(rows, -1), slots, data.view(w, -1))),
+        library_ms=cuda_ms(lambda: pool_p.view(rows, -1).index_copy_(
+            0, lib_idx, lib_data)),
+        nbytes=2 * len(written) * row_bytes + slots.numel() * 4)
+    profiled = [(entry, "scatter_pages", scatter, "scatter_rows")]
+    args = (pool_k.data_ptr(), slots.data_ptr(), data.data_ptr(), rows, w,
+            row_bytes, _build.stream_of(pool_k))
+    write_kernel_extras(
+        entry, "scatter_pages", pool_k, scatter,
+        check=lambda: _build.on_cpu("scatter_pages", pool_k, data,
+                                    ids=(slots,)),
+        launch=lambda: bg._scatter_c(*args),
+        library=lambda: pool_p.view(rows, -1).index_copy_(0, lib_idx,
+                                                          lib_data))
     # stream: lanes of three sequences and two dead lanes, mid-decode state
     q = torch.randn((b, h, hd), generator=gen, device=dev).bfloat16()
     m = torch.randn((b, h), generator=gen, device=dev)
@@ -423,16 +491,146 @@ def check_kernels(report: dict, dev="cuda") -> None:
         pairs[hh * ppn + int(pslots[hh, k, lane])] = (hh - k) % NODES
     lib_idx = torch.tensor(sorted(pairs), device=dev)
     lib_data = payload.view(NODES, -1)[[pairs[r] for r in sorted(pairs)]]
-    record(report, "push_commit", "8-node", err=0.0,
-           ms=cuda_ms(lambda: bg.push_commit(pool_k, pslots, payload, base,
-                                             channels=1, cb=8)),
-           plain_ms=cuda_ms(lambda: bg.push_commit_plain(
-               pool_p.view(rows, -1), pslots, payload.view(NODES, 1, -1),
-               base, 1, 8)),
+    push = functools.partial(bg.push_commit, pool_k, pslots, payload, base,
+                             channels=1, cb=8)
+    entry = record(
+        report, "push_commit", "8-node", err=0.0, ms=cuda_ms(push),
+        plain_ms=cuda_ms(lambda: bg.push_commit_plain(
+            pool_p.view(rows, -1), pslots, payload.view(NODES, 1, -1),
+            base, 1, 8)),
+        library_ms=cuda_ms(lambda: pool_p.view(rows, -1).index_copy_(
+            0, lib_idx, lib_data)),
+        nbytes=2 * len(pairs) * row_bytes + (pslots.numel() + NODES) * 4,
+        note=", channels=1")
+    profiled.append((entry, "push_commit", push, "push_commit_rows"))
+    args = (pool_k.data_ptr(), pslots.data_ptr(), payload.data_ptr(),
+            base.data_ptr(), ppn, NODES, NODES, 8, 8, 1, row_bytes,
+            _build.stream_of(pool_k))
+    write_kernel_extras(
+        entry, "push_commit", pool_k, push,
+        check=lambda: _build.on_cpu("push_commit", pool_k, payload,
+                                    ids=(pslots, base)),
+        launch=lambda: bg._push_c(*args),
+        library=lambda: pool_p.view(rows, -1).index_copy_(0, lib_idx,
+                                                          lib_data))
+    profiled += check_full_flush(report, gen, pool, dev)
+    # The profiler after every host timing: in this smoke's runs, launches
+    # timed after a profiler session took longer on the host.
+    for entry, name, call, kernel in profiled:
+        entry["device_us"] = device_us(call, kernel)
+        graph = ("" if "graph_ms" not in entry else
+                 f", CUDA-graph replay {entry['graph_ms']:.5f} ms a call")
+        print(f"kernel {name}: device {entry['device_us']:.2f} us, wrapper "
+              f"{entry['ms']:.4f} ms{graph}, library "
+              f"{entry['library_ms']:.4f} ms")
+
+
+def write_kernel_extras(entry, name, pool, call, *, check, launch,
+                        library) -> None:
+    """The redesigned write kernels' extra numbers.  The wrapper and its
+    library call, both host-bound, are timed in turns, 5 rounds each, and
+    their medians become the entry's ``ms`` and ``library_ms`` (one round
+    each moves with the host by tens of percent); then the time of a call
+    when 100 calls recorded in a CUDA graph are replayed, and where a
+    wrapper call's host time goes."""
+    rounds = [(cuda_ms(call), cuda_ms(library)) for _ in range(5)]
+    entry["ms_rounds"], entry["library_ms_rounds"] = map(list, zip(*rounds))
+    entry["ms"] = statistics.median(entry["ms_rounds"])
+    entry["library_ms"] = statistics.median(entry["library_ms_rounds"])
+    print(f"kernel {name}: in turns with its library call, wrapper "
+          f"{entry['ms_rounds']} ms, library {entry['library_ms_rounds']} ms")
+    entry["graph_ms"] = graph_ms(call)
+    entry["host"] = host_breakdown(name, pool, call, check, launch, library)
+
+
+def check_full_flush(report: dict, gen, pool, dev="cuda") -> list:
+    """The write kernels on whole-pool flushes of the full-width pool (512
+    pages of 32 KiB), bit-exact against their plain versions: scatter at
+    W = 1024 lanes with FREE, out-of-pool and duplicate lanes, then a flush
+    that writes every row once (timed); push_commit on 8 homes with
+    channels 4, 2 and 1, every home's 64 grid steps writing each of its 64
+    slots once (channels 1 timed).  Returns the timed calls, for the
+    profiler."""
+    rows = pool.shape[0]
+    ppn = rows // NODES
+    pool2 = pool.view(rows, -1)
+    row_bytes = pool2.shape[1] * pool2.element_size()
+    page = tuple(pool.shape[1:])
+    slots = torch.randint(-(rows // 4), rows + rows // 8, (2 * rows,),
+                          generator=gen, device=dev,
+                          dtype=torch.int32).clamp(min=-1)
+    data = torch.randn((2 * rows,) + page, generator=gen,
+                       device=dev).bfloat16()
+    pool_k, pool_p = pool.clone(), pool.clone()
+    bg.scatter_pages(pool_k, slots, data)
+    bg.scatter_pages_plain(pool_p.view(rows, -1), slots,
+                           data.view(2 * rows, -1))
+    if not torch.equal(pool_k, pool_p):
+        raise AssertionError("scatter_pages disagrees with its plain version "
+                             "at W = 1024")
+    perm = torch.randperm(rows, generator=gen, device=dev).to(torch.int32)
+    data = data[:rows]
+    bg.scatter_pages(pool_k, perm, data)
+    bg.scatter_pages_plain(pool_p.view(rows, -1), perm, data.view(rows, -1))
+    if not torch.equal(pool_k, pool_p):
+        raise AssertionError("scatter_pages disagrees with its plain version "
+                             "on a full flush")
+    lib_pool = pool.clone()
+    lib_pool.view(rows, -1).index_copy_(0, perm.long(), data.view(rows, -1))
+    if not torch.equal(lib_pool, pool_k):
+        raise AssertionError("index_copy_ is not the full flush's scatter")
+    scatter = functools.partial(bg.scatter_pages, pool_k, perm, data)
+    record(report, "scatter_pages", "full flush", err=0.0,
+           ms=cuda_ms(scatter, iters=50),
+           plain_ms=cuda_ms(lambda: bg.scatter_pages_plain(
+               pool_p.view(rows, -1), perm, data.view(rows, -1)), iters=20),
            library_ms=cuda_ms(lambda: pool_p.view(rows, -1).index_copy_(
-               0, lib_idx, lib_data)),
-           nbytes=2 * len(pairs) * row_bytes + (pslots.numel() + NODES) * 4,
-           note=", channels=1")
+               0, perm.long(), data.view(rows, -1)), iters=50),
+           nbytes=2 * rows * row_bytes + rows * 4, note=", W=512")
+    profiled = [(report["scatter_pages"]["by_path"]["full flush"],
+                 "scatter_pages (full flush)", scatter, "scatter_rows")]
+
+    pslots = torch.stack([torch.randperm(ppn, generator=gen, device=dev)
+                          for _ in range(NODES)]).view(NODES, NODES, 8).to(
+        torch.int32)
+    payload = torch.randn((NODES, 8) + page, generator=gen,
+                          device=dev).bfloat16()
+    base = torch.zeros((NODES,), dtype=torch.int32, device=dev)
+    for channels in (4, 2, 1):
+        cb = 8 // channels
+        pool_k, pool_p = pool.clone(), pool.clone()
+        bg.push_commit(pool_k, pslots, payload, base, channels=channels,
+                       cb=cb)
+        bg.push_commit_plain(pool_p.view(rows, -1), pslots,
+                             payload.view(NODES, 8, -1), base, channels, cb)
+        if not torch.equal(pool_k, pool_p):
+            raise AssertionError(f"push_commit disagrees with its plain "
+                                 f"version on a full flush (channels "
+                                 f"{channels})")
+    # home h's slot row k, lane l lands payload[(h - k) mod N, l]
+    hh, kk, ll = (torch.arange(x, device=dev) for x in (NODES, NODES, 8))
+    dst = (hh[:, None, None] * ppn + pslots).long().reshape(-1)
+    src = payload.view(NODES, 8, -1)[
+        (hh[:, None, None] - kk[None, :, None]) % NODES,
+        ll[None, None, :].expand(NODES, NODES, 8)].reshape(rows, -1)
+    lib_pool = pool.clone()
+    lib_pool.view(rows, -1).index_copy_(0, dst, src)
+    if not torch.equal(lib_pool, pool_k):
+        raise AssertionError("index_copy_ is not the full flush's commit")
+    push = functools.partial(bg.push_commit, pool_k, pslots, payload, base,
+                             channels=1, cb=8)
+    record(report, "push_commit", "full flush", err=0.0,
+           ms=cuda_ms(push, iters=50),
+           plain_ms=cuda_ms(lambda: bg.push_commit_plain(
+               pool_p.view(rows, -1), pslots, payload.view(NODES, 8, -1),
+               base, 1, 8), iters=20),
+           library_ms=cuda_ms(lambda: pool_p.view(rows, -1).index_copy_(
+               0, dst, src), iters=50),
+           nbytes=2 * rows * row_bytes + (pslots.numel() + NODES) * 4,
+           note=", 8 homes x 64 slots, channels=1")
+    profiled.append((report["push_commit"]["by_path"]["full flush"],
+                     "push_commit (full flush)", push, "push_commit_rows"))
+    return profiled
 
 
 def visible_mask(sq: int, sk: int, causal: bool, window: int,

@@ -9,8 +9,9 @@ Each ``csrc/<name>.cu`` is a plain C interface compiled by ``nvcc`` into
 ``build/repro_torch_kernels/lib<name>-<hash>.so`` at the repository root
 (the hash is of the source, every shared header ``csrc/*.cuh`` and the
 compiler flags, so an edit to any of them builds anew) the first time a
-kernel of it launches, and is loaded with ``ctypes``.  Nothing is built
-when a module is imported.
+kernel of it launches, and is loaded with ``ctypes``; each entry point
+takes its arguments packed into one buffer (:func:`bind`).  Nothing is
+built when a module is imported.
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import shutil
+import struct
 import subprocess
 from pathlib import Path
 
@@ -87,21 +89,33 @@ def build_all() -> None:
         _finish(name, job)
 
 
-def load(name: str, signatures: dict) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``.
-
-    signatures: C function name -> ctypes argtypes; every function returns
+def bind(name: str, fn: str, fields: str):
+    """The C function ``fn`` of ``csrc/<name>.cu`` (built if needed, and
+    loaded), as a callable that takes its arguments in order and returns
     the ``cudaError_t`` of its launch as an int.
+
+    fields: one ``struct`` code an argument, ``q`` for an integer or a
+    pointer (a ``data_ptr()``), ``d`` for a float.  The callable packs the
+    arguments into one bytes object, the entry point's only parameter
+    (``csrc/packed_args.cuh``): ctypes then converts one argument a call,
+    where a dozen typed ones cost microseconds of host time.  A wrapper
+    binds its kernel once, at its first launch, and keeps the callable at
+    module level, so a launch looks nothing up.
     """
     lib = _loaded.get(name)
     if lib is None:
         _finish(name, _start(name))
         lib = ctypes.CDLL(str(_lib_path(name)))
-        for fn, argtypes in signatures.items():
-            getattr(lib, fn).argtypes = argtypes
-            getattr(lib, fn).restype = ctypes.c_int
         _loaded[name] = lib
-    return lib
+    function = getattr(lib, fn)
+    function.argtypes = [ctypes.c_char_p]
+    function.restype = ctypes.c_int
+    pack = struct.Struct("=" + fields).pack
+
+    def launch(*args) -> int:
+        return function(pack(*args))
+
+    return launch
 
 
 def check(err: int, what: str) -> None:
@@ -110,32 +124,64 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA launch failed (cudaError_t {err})")
 
 
-def on_cpu(what: str, *xs: torch.Tensor, aligned: bool = True) -> bool:
+def on_cpu(what: str, *xs: torch.Tensor, ids=(),
+           aligned: bool = True) -> bool:
     """Where a wrapper's operands lie: True when all are CPU tensors (the
-    plain version runs), False when all are contiguous tensors on the
-    current CUDA device, 16-byte aligned where ``aligned`` says the kernel
-    needs it (the kernel launches); raises on anything else, a mix of
-    devices first."""
-    dev = xs[0].device
-    if any(x.device != dev for x in xs):
-        devices = sorted({str(x.device) for x in xs})
+    plain version runs), False when the kernel can take them: every operand
+    a contiguous tensor on the current CUDA device, the index operands
+    ``ids`` int32, and the data operands ``xs`` 16-byte aligned where
+    ``aligned`` says the kernel needs it.  Raises on anything else.
+
+    The kernel's case is one pass of attribute compares, cheap enough for
+    the decode path's thousands of launches a step; only a refusal works
+    out which rule was broken.  The current device is read on every call:
+    ``torch.cuda.set_device`` may change it.
+    """
+    if xs[0].is_cuda:
+        index = torch.cuda.current_device()   # get_device() is -1 off CUDA
+        for x in xs:
+            if (x.get_device() != index or not x.is_contiguous()
+                    or (aligned and x.data_ptr() % 16)):
+                break
+        else:
+            for t in ids:
+                if (t.get_device() != index or not t.is_contiguous()
+                        or t.dtype != torch.int32):
+                    break
+            else:
+                return False
+    elif all(x.device.type == "cpu" for x in (*xs, *ids)):
+        return True
+    _refuse(what, xs, ids, aligned)
+
+
+def _refuse(what: str, xs, ids, aligned: bool):
+    """Raise the error that names why :func:`on_cpu` refused its operands,
+    a mix of devices first."""
+    operands = (*xs, *ids)
+    devices = sorted({str(x.device) for x in operands})
+    if len(devices) > 1:
         raise ValueError(f"{what}: operands on {devices}; all must lie on "
                          f"one device")
-    if dev.type == "cpu":
-        return True
+    dev = xs[0].device
     if dev.type != "cuda":
         raise ValueError(f"{what}: operands on {dev}; the kernel takes CUDA "
                          f"tensors and the plain version CPU tensors")
     if dev.index != torch.cuda.current_device():
         raise ValueError(f"{what}: operands on {dev}, current device is "
                          f"cuda:{torch.cuda.current_device()}")
-    if any(not x.is_contiguous() for x in xs):
+    if any(not x.is_contiguous() for x in operands):
         raise ValueError(f"{what}: operands must be contiguous")
-    if aligned and any(x.data_ptr() % 16 for x in xs):
-        raise ValueError(f"{what}: operands must be 16-byte aligned")
-    return False
+    if any(t.dtype != torch.int32 for t in ids):
+        raise ValueError(f"{what}: index operands must be int32, got "
+                         f"{[t.dtype for t in ids]}")
+    raise ValueError(f"{what}: operands must be 16-byte aligned")
 
 
 def stream_of(t: torch.Tensor) -> int:
-    """Handle of PyTorch's current stream on ``t``'s device."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """Handle of PyTorch's current stream on ``t``'s device, as an int: the
+    capturing stream inside ``torch.cuda.graph``.  PyTorch's raw getter
+    (the one Triton's launcher calls) builds no ``torch.cuda.Stream``; it
+    exists only in CUDA builds of torch, so it is looked up here, on the
+    kernel's path, and never at import."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

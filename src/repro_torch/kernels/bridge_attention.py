@@ -10,20 +10,17 @@ The wrapper counts its kernel launches in
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 
-_SIGNATURES = {
-    "repro_stream_decode_accumulate":
-        [ctypes.c_int] + [ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
-        + [ctypes.c_float, ctypes.c_void_p],
-}
+# dtype, 11 pointers, 6 sizes, scale, stream (csrc/bridge_attention.cu),
+# packed
+_FIELDS = "18qdq"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_stream_c = None          # the kernel's C function, bound at its first launch
 
 
 def stream_decode_accumulate_plain(q, k_pages, v_pages, seq_ids, live,
@@ -76,32 +73,25 @@ def stream_decode_accumulate(q: torch.Tensor, k_pages: torch.Tensor,
         raise ValueError("stream_decode_accumulate: shapes do not match "
                          "q [B,H,hd], pages [W,T,kv,hd], ids [W], m,l [B,H], "
                          "o [B,H,hd]")
-    if q.device.type == "cpu":
+    what = "stream_decode_accumulate"
+    if _build.on_cpu(what, q, k_pages, v_pages, m, l, o, ids=(seq_ids, live),
+                     aligned=False):
         return stream_decode_accumulate_plain(q, k_pages, v_pages, seq_ids,
                                               live, m, l, o)
-    what = "stream_decode_accumulate"
-    if q.device.type != "cuda":
-        raise ValueError(f"{what}: q on {q.device}; the kernel takes CUDA "
-                         f"tensors and the plain version CPU tensors")
-    if q.device.index != torch.cuda.current_device():
-        raise ValueError(f"{what}: q on {q.device}, current device is "
-                         f"cuda:{torch.cuda.current_device()}")
-    operands = (q, k_pages, v_pages, seq_ids, live, m, l, o)
-    if any(x.device != q.device or not x.is_contiguous() for x in operands):
-        raise ValueError(f"{what}: operands must be contiguous on {q.device}")
     if (q.dtype not in _DTYPE_CODE or k_pages.dtype != q.dtype
             or v_pages.dtype != q.dtype):
         raise ValueError(f"{what}: q, k and v must share float32 or bfloat16,"
                          f" got {q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
-    if seq_ids.dtype != torch.int32 or live.dtype != torch.int32:
-        raise ValueError(f"{what}: seq_ids and live must be int32")
     if any(x.dtype != torch.float32 for x in (m, l, o)):
         raise ValueError(f"{what}: m, l and o must be float32")
     m2, l2, o2 = torch.empty_like(m), torch.empty_like(l), torch.empty_like(o)
     if b == 0:
         return m2, l2, o2
-    lib = _build.load("bridge_attention", _SIGNATURES)
-    _build.check(lib.repro_stream_decode_accumulate(
+    global _stream_c
+    if _stream_c is None:
+        _stream_c = _build.bind("bridge_attention",
+                                "repro_stream_decode_accumulate", _FIELDS)
+    _build.check(_stream_c(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), seq_ids.data_ptr(), live.data_ptr(), m.data_ptr(),
         l.data_ptr(), o.data_ptr(), m2.data_ptr(), l2.data_ptr(),

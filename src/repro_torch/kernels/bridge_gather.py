@@ -1,10 +1,18 @@
 """The bridge datapath's page kernels: gather, the N-node commits, scatter.
 
-Each function flattens a page to one trailing dim (pages move as whole
-flits; their inner layout is irrelevant to the datapath) and picks its path
-by the pool's device: a CPU tensor runs the plain PyTorch version beside it,
-a CUDA tensor launches the hand-written kernel of ``csrc/bridge_gather.cu``
-(or raises).  Each wrapper counts its kernel launches in ``<fn>.launches``.
+A page moves as one row of bytes (pages move as whole flits; their inner
+layout is irrelevant to the datapath).  Each function picks its path by
+its operands' device: CPU tensors run the plain PyTorch version beside it
+on pages flattened to one trailing dim, CUDA tensors launch the
+hand-written kernel of ``csrc/bridge_gather.cu`` (or raise).  Each wrapper
+counts its kernel launches in ``<fn>.launches``.
+
+The CUDA branch does the least host work that still checks what the kernel
+does not take: one pass of attribute compares (``_build.on_cpu``), the row
+size from ``numel()``, the C function bound once at module level, the raw
+current stream, and no new tensor views.  Apart from gather's and
+pull_commit's outputs it allocates nothing, and it never synchronises, so
+a launch can be recorded in a CUDA graph.
 
 :func:`gather_pages` and :func:`scatter_pages` serve the one-device
 loopback path and the gather side of the N-node engine; :func:`pull_commit`
@@ -13,7 +21,6 @@ nodes as an axis of one device (the pool node-major, ``[N * ppn]`` rows).
 """
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
@@ -21,20 +28,13 @@ import torch
 from repro_torch.core.memport import FREE
 from repro_torch.kernels import _build
 
-_SIGNATURES = {
-    "repro_gather_pages": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
-                           ctypes.c_void_p],
-    "repro_scatter_pages": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                            ctypes.c_longlong, ctypes.c_int,
-                            ctypes.c_longlong, ctypes.c_void_p],
-    "repro_pull_commit": [ctypes.c_void_p] * 5
-    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
-       ctypes.c_void_p],
-    "repro_push_commit": [ctypes.c_void_p] * 4
-    + [ctypes.c_longlong] + [ctypes.c_int] * 4
-    + [ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p],
-}
+_SOURCE = "bridge_gather"
+# The C entry points' arguments, packed (``_build.bind``; the order is in
+# csrc/bridge_gather.cu): pointers and integers, the stream last.
+_FIELDS = {"repro_gather_pages": "7q", "repro_scatter_pages": "7q",
+           "repro_pull_commit": "10q", "repro_push_commit": "12q"}
+# The kernels' C functions, bound at their first launch.
+_gather_c = _pull_c = _push_c = _scatter_c = None
 
 
 def _flatten_pages(pool: torch.Tensor):
@@ -43,31 +43,17 @@ def _flatten_pages(pool: torch.Tensor):
     return pool.view(pool.shape[0], math.prod(page_shape)), page_shape
 
 
-def _check_rows(what: str, pool2: torch.Tensor, ids=(), pages=()) -> int:
-    """Validate a kernel's operands: the flattened pool, its int32 ``ids``
-    and its other ``pages`` operands.  Returns the row size in bytes."""
-    operands = (*ids, *pages)
-    if pool2.device.type != "cuda":
-        raise ValueError(f"{what}: pool on {pool2.device}; the kernel takes "
-                         f"CUDA tensors and the plain version CPU tensors")
-    if pool2.device.index != torch.cuda.current_device():
-        raise ValueError(f"{what}: pool on {pool2.device}, current device "
-                         f"is cuda:{torch.cuda.current_device()}")
-    for t in operands:
-        if t.device != pool2.device:
-            raise ValueError(f"{what}: operands on {t.device} and "
-                             f"{pool2.device}")
-    for t in (pool2, *operands):
-        if not t.is_contiguous():
-            raise ValueError(f"{what}: operands must be contiguous")
-    if any(t.dtype != torch.int32 for t in ids):
-        raise ValueError(f"{what}: row ids must be int32, got "
-                         f"{[t.dtype for t in ids]}")
-    row_bytes = pool2.shape[1] * pool2.element_size()
-    if row_bytes % 16 or any(t.data_ptr() % 16 for t in (pool2, *pages)):
-        raise ValueError(f"{what}: page rows must be 16-byte multiples on "
-                         f"16-byte boundaries (row of {row_bytes} bytes)")
-    return row_bytes
+def _rows(pool: torch.Tensor) -> tuple[int, int]:
+    """The page rows of ``pool`` and the bytes of one."""
+    rows = pool.shape[0]
+    return rows, (pool.nbytes // rows if rows else 0)
+
+
+def _check_vectors(what: str, row_bytes: int) -> None:
+    """The kernels move rows as 16-byte vectors."""
+    if row_bytes % 16:
+        raise ValueError(f"{what}: page rows must be 16-byte multiples "
+                         f"(row of {row_bytes} bytes)")
 
 
 # ---------------------------------------------------------------------------
@@ -87,24 +73,29 @@ def gather_pages(pool: torch.Tensor, reqs: torch.Tensor) -> torch.Tensor:
 
     pool: [slots, *page_shape]; reqs: i32[...] pool rows (FREE < 0).
     Returns reqs.shape + page_shape: ``pool[req]`` per lane, zeros for FREE
-    lanes; an id past the pool is clamped to the last row.  Replaces ``repro.kernels.bridge_gather.gather_pages``.
+    lanes; an id past the pool is clamped to the last row.  Replaces
+    ``repro.kernels.bridge_gather.gather_pages``.
     """
-    pool2, page_shape = _flatten_pages(pool)
-    flat = reqs.reshape(-1)
-    if pool.device.type == "cpu":
-        out = gather_pages_plain(pool2, flat)
-    elif flat.shape[0] == 0:
-        out = pool2.new_empty((0, pool2.shape[1]))
-    else:
-        row_bytes = _check_rows("gather_pages", pool2, ids=(flat,))
-        out = torch.empty((flat.shape[0], pool2.shape[1]), dtype=pool.dtype,
-                          device=pool.device)
-        lib = _build.load("bridge_gather", _SIGNATURES)
-        _build.check(lib.repro_gather_pages(
-            pool2.data_ptr(), flat.data_ptr(), out.data_ptr(), pool2.shape[0],
-            flat.shape[0], row_bytes, _build.stream_of(pool)), "gather_pages")
-        gather_pages.launches += 1
-    return out.view(tuple(reqs.shape) + page_shape)
+    if _build.on_cpu("gather_pages", pool, ids=(reqs,)):
+        pool2, page_shape = _flatten_pages(pool)
+        return gather_pages_plain(pool2, reqs.reshape(-1)).view(
+            tuple(reqs.shape) + page_shape)
+    out = torch.empty(reqs.shape + pool.shape[1:], dtype=pool.dtype,
+                      device=pool.device)
+    w = reqs.numel()
+    if w == 0:
+        return out
+    rows, row_bytes = _rows(pool)
+    _check_vectors("gather_pages", row_bytes)
+    global _gather_c
+    if _gather_c is None:
+        _gather_c = _build.bind(_SOURCE, "repro_gather_pages",
+                                _FIELDS["repro_gather_pages"])
+    _build.check(_gather_c(pool.data_ptr(), reqs.data_ptr(), out.data_ptr(),
+                           rows, w, row_bytes,
+                           _build.stream_of(pool)), "gather_pages")
+    gather_pages.launches += 1
+    return out
 
 
 gather_pages.launches = 0
@@ -144,32 +135,36 @@ def pull_commit(pool: torch.Tensor, send: torch.Tensor, choice: torch.Tensor,
     fetch does).  Returns [N, L, *page_shape].  Replaces
     ``repro.kernels.bridge_gather.pull_commit`` run on every node at once.
     """
-    pool2, page_shape = _flatten_pages(pool)
     n, lanes = choice.shape
-    e = pool2.shape[1]
-    if (tuple(send.shape) != (n, n, lanes) + page_shape
-            or send.dtype != pool.dtype
-            or tuple(loop_slot.shape) != (n, lanes)
-            or pool2.shape[0] % max(n, 1)):
+    if (send.shape != (n, n, lanes) + pool.shape[1:]
+            or send.dtype != pool.dtype or loop_slot.shape != (n, lanes)
+            or pool.shape[0] % max(n, 1)):
         raise ValueError(
             f"pull_commit: pool {list(pool.shape)}, send {list(send.shape)}, "
             f"choice {list(choice.shape)} and loop_slot "
             f"{list(loop_slot.shape)} do not match [N*ppn, *page], "
             f"[N, N, L, *page], [N, L], [N, L]")
-    send2 = send.reshape(n, n, lanes, e)
-    if pool.device.type == "cpu":
+    if _build.on_cpu("pull_commit", pool, send, ids=(choice, loop_slot)):
+        pool2, page_shape = _flatten_pages(pool)
+        send2 = send.reshape(n, n, lanes, pool2.shape[1])
         out = pull_commit_plain(pool2, send2, choice, loop_slot)
-    else:
-        row_bytes = _check_rows("pull_commit", pool2, ids=(choice, loop_slot),
-                                pages=(send2,))
-        out = torch.empty((n, lanes, e), dtype=pool.dtype, device=pool.device)
-        lib = _build.load("bridge_gather", _SIGNATURES)
-        _build.check(lib.repro_pull_commit(
-            pool2.data_ptr(), send2.data_ptr(), choice.data_ptr(),
-            loop_slot.data_ptr(), out.data_ptr(), pool2.shape[0] // n, n,
-            lanes, row_bytes, _build.stream_of(pool)), "pull_commit")
-        pull_commit.launches += 1
-    return out.view((n, lanes) + page_shape)
+        return out.view((n, lanes) + page_shape)
+    out = torch.empty((n, lanes) + pool.shape[1:], dtype=pool.dtype,
+                      device=pool.device)
+    if n == 0 or lanes == 0:
+        return out
+    rows, row_bytes = _rows(pool)
+    _check_vectors("pull_commit", row_bytes)
+    global _pull_c
+    if _pull_c is None:
+        _pull_c = _build.bind(_SOURCE, "repro_pull_commit",
+                              _FIELDS["repro_pull_commit"])
+    _build.check(_pull_c(pool.data_ptr(), send.data_ptr(), choice.data_ptr(),
+                         loop_slot.data_ptr(), out.data_ptr(), rows // n, n,
+                         lanes, row_bytes,
+                         _build.stream_of(pool)), "pull_commit")
+    pull_commit.launches += 1
+    return out
 
 
 pull_commit.launches = 0
@@ -216,19 +211,19 @@ def push_commit(pool: torch.Tensor, slots: torch.Tensor, data: torch.Tensor,
     home h the commit slots in h's pool, row 0 the loopback writes and row
     k the writes landed from requester ``(h - k) mod N`` (FREE, or a slot
     past the node's pool, drops); data: [N, D, *page_shape] each
-    requester's payloads, of the pool's dtype; base: i32[N] each
-    requester's window start, so a lane's page is ``data[j, base[j] +
+    requester's payloads, of the pool's dtype and row size; base: i32[N]
+    each requester's window start, so a lane's page is ``data[j, base[j] +
     lane]`` (zeros past D), read where it lies.  L = channels * cb; within
     one home the writes commit in the grid order (channel, slot row, lane)
     and the later write wins.  Replaces
     ``repro.kernels.bridge_gather.push_commit`` run on every home at once.
     """
-    pool2, page_shape = _flatten_pages(pool)
     n, s1, lanes = slots.shape
+    rows, row_bytes = _rows(pool)
+    dshape = data.shape
     if (lanes != channels * cb or s1 > n or base.shape != (n,)
-            or data.dim() < 2 or tuple(data.shape[:1]) != (n,)
-            or tuple(data.shape[2:]) != page_shape
-            or data.dtype != pool.dtype or pool2.shape[0] % max(n, 1)):
+            or len(dshape) < 2 or dshape[0] != n or data.dtype != pool.dtype
+            or data.nbytes != n * dshape[1] * row_bytes or rows % max(n, 1)):
         raise ValueError(
             f"push_commit: pool {list(pool.shape)}, slots {list(slots.shape)},"
             f" data {data.dtype}{list(data.shape)}, base {list(base.shape)} "
@@ -237,22 +232,26 @@ def push_commit(pool: torch.Tensor, slots: torch.Tensor, data: torch.Tensor,
             f"[N]")
     if n == 0 or lanes == 0:
         return pool
-    data2 = data.reshape(n, data.shape[1], pool2.shape[1])
-    if pool.device.type == "cpu":
+    if _build.on_cpu("push_commit", pool, data, ids=(slots, base)):
+        pool2, _ = _flatten_pages(pool)
+        data2 = data.reshape(n, dshape[1], pool2.shape[1])
         push_commit_plain(pool2, slots, data2, base, channels, cb)
         return pool
-    row_bytes = _check_rows("push_commit", pool2, ids=(slots, base),
-                            pages=(data2,))
-    lib = _build.load("bridge_gather", _SIGNATURES)
-    _build.check(lib.repro_push_commit(
-        pool2.data_ptr(), slots.data_ptr(), data2.data_ptr(), base.data_ptr(),
-        pool2.shape[0] // n, n, s1, lanes, cb, data2.shape[1], row_bytes,
-        _build.stream_of(pool)), "push_commit")
+    _check_vectors("push_commit", row_bytes)
+    global _push_c
+    if _push_c is None:
+        _push_c = _build.bind(_SOURCE, "repro_push_commit",
+                              _FIELDS["repro_push_commit"])
+    _build.check(_push_c(pool.data_ptr(), slots.data_ptr(), data.data_ptr(),
+                         base.data_ptr(), rows // n, n, s1, lanes, cb,
+                         dshape[1], row_bytes,
+                         _build.stream_of(pool)), "push_commit")
     push_commit.launches += 1
     return pool
 
 
 push_commit.launches = 0
+
 
 def scatter_pages_plain(pool2: torch.Tensor, slots: torch.Tensor,
                         data2: torch.Tensor) -> torch.Tensor:
@@ -275,29 +274,32 @@ def scatter_pages(pool: torch.Tensor, slots: torch.Tensor,
     """One-kernel masked scatter: ``pool.at[slots].set(data, mode="drop")``.
 
     pool: [slots, *page_shape]; slots: i32[W] (FREE < 0 drops);
-    data: [W, *page_shape] of the pool's dtype.  Live duplicates resolve
-    last-write-wins.  Where the reference donates the pool buffer, the port
-    updates ``pool`` in place and returns it.  Replaces
+    data: [W, *page_shape] of the pool's dtype and row size.  Live
+    duplicates resolve last-write-wins.  Where the reference donates the
+    pool buffer, the port updates ``pool`` in place and returns it.  Replaces
     ``repro.kernels.bridge_gather.scatter_pages``.
     """
-    pool2, page_shape = _flatten_pages(pool)
     w = slots.shape[0]
-    if data.dtype != pool.dtype or tuple(data.shape) != (w,) + page_shape:
-        raise ValueError(f"scatter_pages: data {data.dtype}{list(data.shape)}"
-                         f" does not match {w} pages of {pool.dtype}"
-                         f"{list(page_shape)}")
+    rows, row_bytes = _rows(pool)
+    if (slots.dim() != 1 or data.dtype != pool.dtype or data.shape[0] != w
+            or data.nbytes != w * row_bytes):
+        raise ValueError(f"scatter_pages: slots {list(slots.shape)} and data "
+                         f"{data.dtype}{list(data.shape)} do not match [W] "
+                         f"and W pages of {pool.dtype}{list(pool.shape[1:])}")
     if w == 0:
         return pool
-    data2 = data.reshape(w, pool2.shape[1])
-    if pool.device.type == "cpu":
-        scatter_pages_plain(pool2, slots, data2)
+    if _build.on_cpu("scatter_pages", pool, data, ids=(slots,)):
+        pool2, _ = _flatten_pages(pool)
+        scatter_pages_plain(pool2, slots, data.reshape(w, pool2.shape[1]))
         return pool
-    row_bytes = _check_rows("scatter_pages", pool2, ids=(slots,),
-                            pages=(data2,))
-    lib = _build.load("bridge_gather", _SIGNATURES)
-    _build.check(lib.repro_scatter_pages(
-        pool2.data_ptr(), slots.data_ptr(), data2.data_ptr(), pool2.shape[0],
-        w, row_bytes, _build.stream_of(pool)), "scatter_pages")
+    _check_vectors("scatter_pages", row_bytes)
+    global _scatter_c
+    if _scatter_c is None:
+        _scatter_c = _build.bind(_SOURCE, "repro_scatter_pages",
+                                 _FIELDS["repro_scatter_pages"])
+    _build.check(_scatter_c(pool.data_ptr(), slots.data_ptr(),
+                            data.data_ptr(), rows, w, row_bytes,
+                            _build.stream_of(pool)), "scatter_pages")
     scatter_pages.launches += 1
     return pool
 

@@ -26,6 +26,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "packed_args.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -157,12 +159,27 @@ int launch(const void* q, const void* k, const void* v, const int* seq_ids,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k and v share it).
-extern "C" int repro_stream_decode_accumulate(
-    int dtype, const void* q, const void* k, const void* v, const int* seq_ids,
-    const int* live, const float* m_in, const float* l_in, const float* o_in,
-    float* m_out, float* l_out, float* o_out, int b, int h, int kvh, int w,
-    int t, int hd, float scale, void* stream) {
+// Packed arguments: dtype (0 = float32, 1 = bfloat16; q, k and v share
+// it), q, k, v, seq_ids, live, m_in, l_in, o_in, m_out, l_out, o_out, b, h,
+// kvh, w, t, hd, scale, stream.
+extern "C" int repro_stream_decode_accumulate(const char* packed) {
+  const PackedArgs a{packed};
+  const int dtype = a.i32(0);
+  const void* q = a.ptr<const void>(1);
+  const void* k = a.ptr<const void>(2);
+  const void* v = a.ptr<const void>(3);
+  const int* seq_ids = a.ptr<const int>(4);
+  const int* live = a.ptr<const int>(5);
+  const float* m_in = a.ptr<const float>(6);
+  const float* l_in = a.ptr<const float>(7);
+  const float* o_in = a.ptr<const float>(8);
+  float* m_out = a.ptr<float>(9);
+  float* l_out = a.ptr<float>(10);
+  float* o_out = a.ptr<float>(11);
+  const int b = a.i32(12), h = a.i32(13), kvh = a.i32(14), w = a.i32(15),
+            t = a.i32(16), hd = a.i32(17);
+  const float scale = a.f32(18);
+  void* stream = a.ptr<void>(19);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
     return launch<float>(q, k, v, seq_ids, live, m_in, l_in, o_in, m_out,

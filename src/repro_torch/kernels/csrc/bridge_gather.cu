@@ -6,17 +6,19 @@
 //   * pull_commit   (_pull_commit_kernel): retire a pull round of the N-node
 //     engine: per (requester, lane), choice -1 gives zeros, 0 the requester's
 //     loopback row, h+1 the page home h put in the all-to-all send buffer;
-//   * push_commit   (_push_commit_kernel): retire a push round of the N-node
-//     engine in place, in the grid order (channel, slot row, lane) of each
-//     home, the later write winning;
-//   * scatter_pages (_scatter_kernel): pool.at[slots].set(data, mode="drop"),
-//     FREE lanes dropped and, among lanes with the same slot, the last wins.
+//   * push_commit   (_push_commit_kernel, :244-286): retire a push round of
+//     the N-node engine in place, in the grid order (channel, slot row, lane)
+//     of each home, the later write winning;
+//   * scatter_pages (_scatter_kernel, :289-330):
+//     pool.at[slots].set(data, mode="drop"), FREE lanes dropped and, among
+//     lanes with the same slot, the last wins.
 //
-// What bounds them: bytes.  Each moves whole page rows (32 KiB for a
-// granite-3-8b page of 16 tokens x 8 kv heads x 128 bf16) and computes
-// nothing; at the decode path's few dozen live lanes a launch moves a few
-// MiB at most, so it is bound by launch latency long before the 3.35 TB/s
-// of HBM.
+// What bounds them: bytes, once they move enough of them.  Each moves whole
+// page rows (32 KiB for a granite-3-8b page of 16 tokens x 8 kv heads x 128
+// bf16) and computes nothing.  The decode path's rounds move a few dozen
+// rows at most, a few MiB, so there a launch is bound by its latency long
+// before the 3.35 TB/s of HBM; a full-pool flush (every slot of a 512-page
+// pool written, 16 MiB in and 16 MiB out) is bound by the bytes.
 //
 // The N memory nodes of the ring are an axis of one device: the pool is
 // [N * ppn] rows, node-major (row home * ppn + slot).  The TPU's all-to-all
@@ -25,26 +27,56 @@
 // all-gather of data windows becomes an index: home h lands requester
 // (h - k) mod N's window for slot row k.  One launch serves all N nodes.
 //
-// Design.  One block per request lane: the block reads its own row id, so
-// there is no scalar prefetch, and copies one row with 16-byte vector loads
-// and stores (neighbouring threads on neighbouring addresses).  The TPU's
-// scatter grid runs in order, so a later lane overwrites an earlier one; CUDA
-// blocks run in no order, so each scatter block first scans the lanes after
-// its own and writes only if no later lane holds the same live slot.  W is a
-// few dozen, so that O(W) scan is nothing beside the row copy.  The pool is
-// updated in place and needs no pad row.  push_commit resolves its shadowed
-// writes the same way, over the s1 x L grid steps of its home (64 at N = 8,
-// budget 8), the block's threads splitting the scan; pull_commit reads its
-// lane's choice and copies one row from the pool, from the send buffer or
-// writes zeros.
+// What the TPU kernels did, and what the two write kernels do instead.  The
+// TPU runs its grid in order on one core, one page row a step, with the
+// rows prefetched as scalars: a later step simply overwrites an earlier one
+// (push's grid is (channel, slot row, lane), scatter's the lanes), and the
+// off-TPU path makes that explicit with _shadow_to, a quadratic compare that
+// steers every shadowed write to a pad row.  CUDA blocks run in no order,
+// so a write must learn by itself whether a later one shadows it.
+//
+// Design: one block per write (a lane of scatter, a grid step of push).
+// A block reads its slot; a dead write's block leaves at once, and most
+// blocks of a decode round are dead (push's round at N = 8 has 512 grid
+// steps; most decode rounds write nothing, a flush round writes 8).  A live block reads the later
+// writes' slots, one a thread (scatter issues the first 256 with its own
+// slot; push issues its home's with base[j]), and votes
+// (__syncthreads_or) whether one holds its slot; a shadowed write's block
+// leaves, a winner copies its row.  So each write is resolved once, by its
+// own block, and nothing waits on another block.  The copy moves 16-byte
+// vectors, each thread loading its 8 before it stores any, so a block
+// keeps 32 KiB (one page) in flight; at a full flush every block is a
+// winner, 512 of them for the 512-page pool.  The winners write distinct
+// rows, so they can run in any order and the result is the TPU grid's, bit
+// for bit.
+//
+// Tried and dropped for push_commit: resolving a home once and handing its
+// winners to the copying blocks as a work list, either through a thread
+// block cluster (the first block resolves in shared memory, the others read
+// the list by distributed shared memory) or with every copying block
+// resolving the home itself.  Both were slower on the card, at the decode
+// path's 8 live writes and at a full flush: a block can start its copy only
+// after the whole home is resolved (and, in the cluster, after a cluster
+// barrier and a remote read).  Loading the home's slots with the block's
+// own slot saves a round trip for a live write but costs every dead block
+// 256 loads, and a decode round is mostly dead blocks.
+//
+// gather and pull_commit keep one block per request lane, which reads its
+// own row id (there is no scalar prefetch) and copies one row with 16-byte
+// vector loads and stores.
 //
 // Rows are moved as raw bytes, so one kernel serves every element type; the
 // wrapper checks that a row is a multiple of 16 bytes and 16-byte aligned.
+// No launch allocates or synchronises, so each can be captured in a CUDA
+// graph.
 #include <cuda_runtime.h>
+
+#include "packed_args.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kBatch = 8;  // 16-byte vectors a thread holds in flight
 
 __global__ void gather_rows(const int4* __restrict__ pool,
                             const int* __restrict__ reqs,
@@ -65,19 +97,46 @@ __global__ void gather_rows(const int4* __restrict__ pool,
     dst[j] = __ldg(src + j);
 }
 
-__global__ void scatter_rows(int4* __restrict__ pool,
-                             const int* __restrict__ slots,
-                             const int4* __restrict__ data, int w,
-                             long long rows, long long vecs) {
+// Copy one row of `vecs` 16-byte vectors, or write zeros where src is null;
+// blockDim.x == kThreads.  Each thread loads its kBatch vectors before it
+// stores any, so the block keeps kThreads * kBatch * 16 bytes in flight.
+__device__ __forceinline__ void copy_row_batched(int4* __restrict__ dst,
+                                                 const int4* __restrict__ src,
+                                                 long long vecs) {
+  for (long long j0 = threadIdx.x; j0 < vecs;
+       j0 += static_cast<long long>(kThreads) * kBatch) {
+    int4 v[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const long long j = j0 + u * kThreads;
+      v[u] = (src != nullptr && j < vecs) ? __ldg(src + j)
+                                          : make_int4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const long long j = j0 + u * kThreads;
+      if (j < vecs) dst[j] = v[u];
+    }
+  }
+}
+
+// One block per lane: a live lane writes its row unless a later lane holds
+// the same slot.  The block's threads read the later lanes' slots, the first
+// 256 of them together with the lane's own.
+__global__ void __launch_bounds__(kThreads)
+    scatter_rows(int4* __restrict__ pool, const int* __restrict__ slots,
+                 const int4* __restrict__ data, int w, long long rows,
+                 long long vecs) {
   const int lane = blockIdx.x;
+  const int first = lane + 1 + threadIdx.x;
+  const int next = first < w ? slots[first] : -1;
   const int s = slots[lane];
-  if (s < 0 || s >= rows) return;
-  for (int j = lane + 1; j < w; ++j)
-    if (slots[j] == s) return;  // a later lane writes this slot
-  const int4* src = data + static_cast<long long>(lane) * vecs;
-  int4* dst = pool + static_cast<long long>(s) * vecs;
-  for (long long j = threadIdx.x; j < vecs; j += blockDim.x)
-    dst[j] = __ldg(src + j);
+  if (s < 0 || s >= rows) return;  // FREE or past the pool: dropped
+  int later = next == s;
+  for (int j = first + kThreads; j < w; j += kThreads) later |= slots[j] == s;
+  if (__syncthreads_or(later)) return;  // a later lane writes this slot
+  copy_row_batched(pool + static_cast<long long>(s) * vecs,
+                   data + static_cast<long long>(lane) * vecs, vecs);
 }
 
 __device__ __forceinline__ void copy_row(int4* __restrict__ dst,
@@ -115,47 +174,62 @@ __global__ void pull_commit_rows(const int4* __restrict__ pool,
   copy_row(out + idx * vecs, src, vecs);
 }
 
-// One block per grid step (home h, slot row k, lane), lane = c * cb + b.
-// Within a home the TPU grid writes in the order t = (c * s1 + k) * cb + b,
-// the later write winning; a block writes only if no later step of its home
-// holds the same live slot.  Homes own disjoint rows.  Row k of home h lands
-// requester (h - k) mod N's data window, read where it lies: data[j, base[j]
-// + lane], zeros past the window's end.
-__global__ void push_commit_rows(int4* __restrict__ pool,
-                                 const int* __restrict__ slots,
-                                 const int4* __restrict__ data,
-                                 const int* __restrict__ base, long long ppn,
-                                 int n, int s1, int lanes, int cb,
-                                 long long d_rows, long long vecs) {
+// The TPU grid's step t of the write at slot row k, lane = c * cb + b:
+// t = (c * s1 + k) * cb + b.
+__device__ __forceinline__ int grid_step(int k, int lane, int s1, int cb) {
+  return ((lane / cb) * s1 + k) * cb + lane % cb;
+}
+
+// One block per write (home h, slot row k, lane).  Within a home the writes
+// commit in grid-step order, the later winning; homes own disjoint rows.
+// Row k of home h lands requester (h - k) mod N's data window, read where
+// it lies: data[j, base[j] + lane], zeros past the window's end.  The block
+// reads its slot first, so a dead write's block leaves after one load; a
+// live one then reads base[j] and the home's slots (one a thread) together.
+__global__ void __launch_bounds__(kThreads)
+    push_commit_rows(int4* __restrict__ pool, const int* __restrict__ slots,
+                     const int4* __restrict__ data,
+                     const int* __restrict__ base, long long ppn, int n,
+                     int s1, int lanes, int cb, long long d_rows,
+                     long long vecs) {
   const long long idx = blockIdx.x;
+  const int s = slots[idx];
+  if (s < 0 || s >= ppn) return;  // FREE or past the node's pool: dropped
   const int lane = static_cast<int>(idx % lanes);
   const int k = static_cast<int>((idx / lanes) % s1);
   const int h = static_cast<int>(idx / (static_cast<long long>(lanes) * s1));
-  const int s = slots[idx];
-  if (s < 0 || s >= ppn) return;  // FREE or past the node's pool: dropped
-  const int t = ((lane / cb) * s1 + k) * cb + lane % cb;
-  const int* home_slots = slots + static_cast<long long>(h) * s1 * lanes;
-  int shadowed = 0;
-  for (int i = threadIdx.x; i < s1 * lanes; i += blockDim.x) {
-    const int l2 = i % lanes;
-    const int t2 = ((l2 / cb) * s1 + i / lanes) * cb + l2 % cb;
-    if (t2 > t && home_slots[i] == s) shadowed = 1;
-  }
-  if (__syncthreads_or(shadowed)) return;
   const int j = ((h - k) % n + n) % n;
-  const long long di = static_cast<long long>(base[j]) + lane;
+  const int steps = s1 * lanes;
+  const int* home_slots = slots + static_cast<long long>(h) * steps;
+  const int t = grid_step(k, lane, s1, cb);
+  const int start = base[j];
+  int later = 0;
+  for (int i = threadIdx.x; i < steps; i += kThreads)
+    later |= home_slots[i] == s && grid_step(i / lanes, i % lanes, s1, cb) > t;
+  if (__syncthreads_or(later)) return;  // a later step writes this slot
+  const long long di = static_cast<long long>(start) + lane;
   const int4* src =
       di < d_rows ? data + (static_cast<long long>(j) * d_rows + di) * vecs
                   : nullptr;
-  copy_row(pool + (static_cast<long long>(h) * ppn + s) * vecs, src, vecs);
+  copy_row_batched(pool + (static_cast<long long>(h) * ppn + s) * vecs, src,
+                   vecs);
 }
 
 }  // namespace
 
-extern "C" int repro_pull_commit(const void* pool, const void* send,
-                                 const int* choice, const int* loop_slot,
-                                 void* out, long long ppn, int n, int lanes,
-                                 long long row_bytes, void* stream) {
+// Packed arguments: pool, send, choice, loop_slot, out, ppn, n, lanes,
+// row_bytes, stream.
+extern "C" int repro_pull_commit(const char* packed) {
+  const PackedArgs a{packed};
+  const void* pool = a.ptr<const void>(0);
+  const void* send = a.ptr<const void>(1);
+  const int* choice = a.ptr<const int>(2);
+  const int* loop_slot = a.ptr<const int>(3);
+  void* out = a.ptr<void>(4);
+  const long long ppn = a.i64(5);
+  const int n = a.i32(6), lanes = a.i32(7);
+  const long long row_bytes = a.i64(8);
+  void* stream = a.ptr<void>(9);
   if (n == 0 || lanes == 0) return 0;
   pull_commit_rows<<<n * lanes, kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
@@ -164,11 +238,18 @@ extern "C" int repro_pull_commit(const void* pool, const void* send,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int repro_push_commit(void* pool, const int* slots,
-                                 const void* data, const int* base,
-                                 long long ppn, int n, int s1, int lanes,
-                                 int cb, long long d_rows, long long row_bytes,
-                                 void* stream) {
+// Packed arguments: pool, slots, data, base, ppn, n, s1, lanes, cb,
+// d_rows, row_bytes, stream.
+extern "C" int repro_push_commit(const char* packed) {
+  const PackedArgs a{packed};
+  void* pool = a.ptr<void>(0);
+  const int* slots = a.ptr<const int>(1);
+  const void* data = a.ptr<const void>(2);
+  const int* base = a.ptr<const int>(3);
+  const long long ppn = a.i64(4);
+  const int n = a.i32(5), s1 = a.i32(6), lanes = a.i32(7), cb = a.i32(8);
+  const long long d_rows = a.i64(9), row_bytes = a.i64(10);
+  void* stream = a.ptr<void>(11);
   if (n == 0 || s1 == 0 || lanes == 0) return 0;
   push_commit_rows<<<n * s1 * lanes, kThreads, 0,
                      static_cast<cudaStream_t>(stream)>>>(
@@ -177,9 +258,16 @@ extern "C" int repro_push_commit(void* pool, const int* slots,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int repro_gather_pages(const void* pool, const int* reqs, void* out,
-                                  long long rows, int w, long long row_bytes,
-                                  void* stream) {
+// Packed arguments: pool, reqs, out, rows, w, row_bytes, stream.
+extern "C" int repro_gather_pages(const char* packed) {
+  const PackedArgs a{packed};
+  const void* pool = a.ptr<const void>(0);
+  const int* reqs = a.ptr<const int>(1);
+  void* out = a.ptr<void>(2);
+  const long long rows = a.i64(3);
+  const int w = a.i32(4);
+  const long long row_bytes = a.i64(5);
+  void* stream = a.ptr<void>(6);
   if (w == 0) return 0;
   gather_rows<<<w, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int4*>(pool), reqs, static_cast<int4*>(out), rows,
@@ -187,9 +275,16 @@ extern "C" int repro_gather_pages(const void* pool, const int* reqs, void* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int repro_scatter_pages(void* pool, const int* slots,
-                                   const void* data, long long rows, int w,
-                                   long long row_bytes, void* stream) {
+// Packed arguments: pool, slots, data, rows, w, row_bytes, stream.
+extern "C" int repro_scatter_pages(const char* packed) {
+  const PackedArgs a{packed};
+  void* pool = a.ptr<void>(0);
+  const int* slots = a.ptr<const int>(1);
+  const void* data = a.ptr<const void>(2);
+  const long long rows = a.i64(3);
+  const int w = a.i32(4);
+  const long long row_bytes = a.i64(5);
+  void* stream = a.ptr<void>(6);
   if (w == 0) return 0;
   scatter_rows<<<w, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<int4*>(pool), slots, static_cast<const int4*>(data), w, rows,

@@ -43,6 +43,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "packed_args.cuh"
+
 namespace {
 
 constexpr int kRows = 64;      // query rows (position, head) per block
@@ -284,14 +286,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 
 }  // namespace
 
-// q, k, v and o float32; hd is a multiple of 8 up to 256; every pointer
-// is 16-byte aligned.
-extern "C" int repro_flash_attention_f32(const void* q, const void* k,
-                                         const void* v, void* o, int b,
-                                         int sq, int sk, int h, int kvh,
-                                         int hd, int causal, int window,
-                                         int q_offset, float scale,
-                                         void* stream) {
+// Packed arguments: q, k, v, o (float32, every pointer 16-byte aligned),
+// b, sq, sk, h, kvh, hd (a multiple of 8 up to 256), causal, window,
+// q_offset, scale, stream.
+extern "C" int repro_flash_attention_f32(const char* packed) {
+  const PackedArgs a{packed};
+  const void* q = a.ptr<const void>(0);
+  const void* k = a.ptr<const void>(1);
+  const void* v = a.ptr<const void>(2);
+  void* o = a.ptr<void>(3);
+  const int b = a.i32(4), sq = a.i32(5), sk = a.i32(6), h = a.i32(7),
+            kvh = a.i32(8), hd = a.i32(9), causal = a.i32(10),
+            window = a.i32(11), q_offset = a.i32(12);
+  const float scale = a.f32(13);
+  void* stream = a.ptr<void>(14);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd % 8 != 0 || hd < 8 || hd > 256 || kvh < 1 || h % kvh != 0)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -71,6 +71,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "packed_args.cuh"
 
 namespace {
 
@@ -539,14 +540,24 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 
 }  // namespace
 
-// q, k, v and o bf16, contiguous, 16-byte aligned; hd a multiple of 8 up
-// to 256.  hd_pad (hd rounded up to 64) and key_tile (keys per tile) name
-// the instantiation, as the wrapper's variant() chooses them.  Returns a
-// cudaError_t, or 10000 + the CUresult of a failed tensor-map encoding.
-extern "C" int repro_flash_attention_wgmma(
-    const void* q, const void* k, const void* v, void* o, int b, int sq,
-    int sk, int h, int kvh, int hd, int hd_pad, int key_tile, int causal,
-    int window, int q_offset, float scale, void* stream) {
+// Packed arguments: q, k, v, o (bf16, contiguous, 16-byte aligned), b, sq,
+// sk, h, kvh, hd (a multiple of 8 up to 256), hd_pad, key_tile, causal,
+// window, q_offset, scale, stream.  hd_pad (hd rounded up to 64) and
+// key_tile (keys per tile) name the instantiation, as the wrapper's
+// variant() chooses them.  Returns a cudaError_t, or 10000 + the CUresult
+// of a failed tensor-map encoding.
+extern "C" int repro_flash_attention_wgmma(const char* packed) {
+  const PackedArgs a{packed};
+  const void* q = a.ptr<const void>(0);
+  const void* k = a.ptr<const void>(1);
+  const void* v = a.ptr<const void>(2);
+  void* o = a.ptr<void>(3);
+  const int b = a.i32(4), sq = a.i32(5), sk = a.i32(6), h = a.i32(7),
+            kvh = a.i32(8), hd = a.i32(9), hd_pad = a.i32(10),
+            key_tile = a.i32(11), causal = a.i32(12), window = a.i32(13),
+            q_offset = a.i32(14);
+  const float scale = a.f32(15);
+  void* stream = a.ptr<void>(16);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (hd % 8 != 0 || hd < 8 || hd > hd_pad || hd_pad - hd >= 64 || kvh < 1 ||
       h % kvh != 0)

@@ -30,6 +30,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "packed_args.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -160,13 +162,22 @@ int launch(const void* q, const void* k_pool, const void* v_pool,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, the pools and out share it).
-extern "C" int repro_paged_attention(int dtype, const void* q,
-                                     const void* k_pool, const void* v_pool,
-                                     const int* table, const int* lengths,
-                                     void* out, int b, int h, int kvh,
-                                     int slots, int t, int hd, int max_pages,
-                                     float scale, void* stream) {
+// Packed arguments: dtype (0 = float32, 1 = bfloat16; q, the pools and out
+// share it), q, k_pool, v_pool, table, lengths, out, b, h, kvh, slots, t,
+// hd, max_pages, scale, stream.
+extern "C" int repro_paged_attention(const char* packed) {
+  const PackedArgs a{packed};
+  const int dtype = a.i32(0);
+  const void* q = a.ptr<const void>(1);
+  const void* k_pool = a.ptr<const void>(2);
+  const void* v_pool = a.ptr<const void>(3);
+  const int* table = a.ptr<const int>(4);
+  const int* lengths = a.ptr<const int>(5);
+  void* out = a.ptr<void>(6);
+  const int b = a.i32(7), h = a.i32(8), kvh = a.i32(9), slots = a.i32(10),
+            t = a.i32(11), hd = a.i32(12), max_pages = a.i32(13);
+  const float scale = a.f32(14);
+  void* stream = a.ptr<void>(15);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (kvh < 1 || h % kvh != 0 || slots < 1)
     return static_cast<int>(cudaErrorInvalidValue);

@@ -23,6 +23,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "packed_args.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -129,10 +131,18 @@ int launch(int pass, const void* x, const void* y, void* out, long long n,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; pass: 0 copy, 1 scale, 2 add, 3 triad.
-// y is null for copy and scale.  n > 0.
-extern "C" int repro_stream(int dtype, int pass, const void* x, const void* y,
-                            void* out, long long n, float q, void* stream) {
+// Packed arguments: dtype (0 = float32, 1 = bfloat16), pass (0 copy,
+// 1 scale, 2 add, 3 triad), x, y (null for copy and scale), out, n > 0, q,
+// stream.
+extern "C" int repro_stream(const char* packed) {
+  const PackedArgs a{packed};
+  const int dtype = a.i32(0), pass = a.i32(1);
+  const void* x = a.ptr<const void>(2);
+  const void* y = a.ptr<const void>(3);
+  void* out = a.ptr<void>(4);
+  const long long n = a.i64(5);
+  const float q = a.f32(6);
+  void* stream = a.ptr<void>(7);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= 0 || ((pass == kAdd || pass == kTriad) && y == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);

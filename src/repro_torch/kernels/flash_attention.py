@@ -20,7 +20,6 @@ kernel's in ``flash_attention.launches_by_kernel``.
 """
 from __future__ import annotations
 
-import ctypes
 import dataclasses
 
 import torch
@@ -31,14 +30,11 @@ from repro_torch.models.flash import attention_ref
 WGMMA = "flash_fwd_wgmma"          # the kernels' symbols, as profilers name them
 CUDA_CORES = "flash_fwd_kernel"
 _SOURCE = {WGMMA: "flash_attention_wgmma", CUDA_CORES: "flash_attention"}
-_SIGNATURES = {
-    WGMMA: {"repro_flash_attention_wgmma":
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 11
-            + [ctypes.c_float, ctypes.c_void_p]},
-    CUDA_CORES: {"repro_flash_attention_f32":
-                 [ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
-                 + [ctypes.c_float, ctypes.c_void_p]},
-}
+# kernel -> its C function and packed arguments: 4 pointers, the sizes and
+# masks, scale, stream (csrc/flash_attention*.cu)
+_ENTRY = {WGMMA: ("repro_flash_attention_wgmma", "15qdq"),
+          CUDA_CORES: ("repro_flash_attention_f32", "13qdq")}
+_bound = {}               # kernel -> its C function, bound at its first launch
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,16 +106,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _build.load(_SOURCE[plan.kernel], _SIGNATURES[plan.kernel])
+    fn = _bound.get(plan.kernel)
+    if fn is None:
+        fn = _bound[plan.kernel] = _build.bind(_SOURCE[plan.kernel],
+                                               *_ENTRY[plan.kernel])
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
             sk, h, kv, hd)
     masks = (int(bool(causal)), int(window), int(q_offset), hd ** -0.5,
              _build.stream_of(q))
     if plan.kernel == WGMMA:
-        err = lib.repro_flash_attention_wgmma(*args, plan.hd_pad,
-                                              plan.key_tile, *masks)
+        err = fn(*args, plan.hd_pad, plan.key_tile, *masks)
     else:
-        err = lib.repro_flash_attention_f32(*args, *masks)
+        err = fn(*args, *masks)
     _build.check(err, what)
     flash_attention.launches += 1
     flash_attention.launches_by_kernel[plan.kernel] += 1

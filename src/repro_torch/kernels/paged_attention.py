@@ -12,19 +12,16 @@ in ``paged_attention.launches``.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.core.kvbridge import decode_attention_ref
 from repro_torch.kernels import _build
 
-_SIGNATURES = {
-    "repro_paged_attention":
-        [ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-        + [ctypes.c_float, ctypes.c_void_p],
-}
+# dtype, 6 pointers, 7 sizes, scale, stream (csrc/paged_attention.cu),
+# packed
+_FIELDS = "14qdq"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_paged_c = None           # the kernel's C function, bound at its first launch
 
 
 def paged_attention_plain(q, k_pool, v_pool, page_table, lengths, *,
@@ -66,7 +63,7 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
                          f"[B]")
     if page_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError(f"{what}: page_table and lengths must be int32")
-    if _build.on_cpu(what, q, k_pool, v_pool, page_table, lengths):
+    if _build.on_cpu(what, q, k_pool, v_pool, ids=(page_table, lengths)):
         return paged_attention_plain(q, k_pool, v_pool, page_table, lengths,
                                      max_pages=max_pages)
     if (q.dtype not in _DTYPE_CODE or k_pool.dtype != q.dtype
@@ -77,8 +74,11 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = _build.load("paged_attention", _SIGNATURES)
-    _build.check(lib.repro_paged_attention(
+    global _paged_c
+    if _paged_c is None:
+        _paged_c = _build.bind("paged_attention", "repro_paged_attention",
+                               _FIELDS)
+    _build.check(_paged_c(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), b, h, kv, slots, t, hd, max_pages, hd ** -0.5,

@@ -10,17 +10,14 @@ interpreter and change no result; they do not exist here.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from repro_torch.kernels import _build
 
-_SIGNATURES = {
-    "repro_stream": [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 3
-    + [ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p],
-}
+# dtype, pass, x, y, out, n, q, stream (csrc/stream.cu), packed
+_FIELDS = "6qdq"
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+_stream_c = None          # the kernel's C function, bound at its first launch
 _COPY, _SCALE, _ADD, _TRIAD = range(4)
 
 
@@ -58,10 +55,12 @@ def _run(fn, what: str, pass_: int, x: torch.Tensor, y=None,
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    lib = _build.load("stream", _SIGNATURES)
-    _build.check(lib.repro_stream(
+    global _stream_c
+    if _stream_c is None:
+        _stream_c = _build.bind("stream", "repro_stream", _FIELDS)
+    _build.check(_stream_c(
         _DTYPE_CODE[x.dtype], pass_, x.data_ptr(),
-        None if y is None else y.data_ptr(), out.data_ptr(), x.numel(),
+        0 if y is None else y.data_ptr(), out.data_ptr(), x.numel(),
         float(q), _build.stream_of(x)), what)
     fn.launches += 1
     return out

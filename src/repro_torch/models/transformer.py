@@ -217,8 +217,14 @@ class DenseCacheOps:
     def append_and_attend(self, cfg, st, shared, lengths, q, k_new, v_new, *,
                           window: int = 0):
         rows = torch.arange(q.shape[0], device=q.device)
-        st["k"][rows, lengths] = k_new.to(self.dtype)
-        st["v"][rows, lengths] = v_new.to(self.dtype)
+        # A row at or past max_len drops its write, as the reference's
+        # ``.at[].set`` does; the mask stays on the device (no sync).
+        pos = lengths.clamp(max=self.max_len - 1)
+        keep = (lengths < self.max_len)[:, None, None]
+        for name, new in (("k", k_new), ("v", v_new)):
+            cache = st[name]
+            cache[rows, pos] = torch.where(keep, new.to(self.dtype),
+                                           cache[rows, pos])
         visible = lengths + 1
         if window > 0:
             lo = (visible - window).clamp(min=0)

@@ -134,6 +134,165 @@ def test_push_commit_kernel_matches_plain(cuda, dtype, channels):
     assert torch.equal(got, want)
 
 
+# Page rows of the main path (32 KiB) and rows that are 16-byte multiples
+# but not 128-byte ones (112 and 144 bytes).
+WRITE_PAGES = [(torch.bfloat16, (16, 8, 128)), (torch.bfloat16, (7, 8)),
+               (torch.float32, (3, 12))]
+
+
+def _wide_slots(gen, w, rows, device):
+    """W lanes over a pool of ``rows``: about a fifth FREE, a tenth past
+    the pool, and many live duplicates (W > rows)."""
+    return torch.randint(-(rows // 4), rows + rows // 8, (w,), generator=gen,
+                         device=device, dtype=torch.int32).clamp(min=-1)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w,rows", [(64, 40), (1024, 512)])
+@pytest.mark.parametrize("dtype,page", WRITE_PAGES)
+def test_scatter_kernel_wide_rounds_match_plain(cuda, w, rows, dtype, page):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(8)
+    pool = _pool(gen, rows, dtype, cuda, page)
+    slots = _wide_slots(gen, w, rows, cuda)
+    assert (slots < 0).any() and (slots >= rows).any()
+    live = slots[(slots >= 0) & (slots < rows)]
+    assert live.unique().numel() < live.numel()
+    data = _pool(gen, w, dtype, cuda, page)
+    before = bg.scatter_pages.launches
+    got = bg.scatter_pages(pool.clone(), slots, data)
+    want = pool.clone()
+    bg.scatter_pages_plain(want.view(rows, -1), slots, data.view(w, -1))
+    assert bg.scatter_pages.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("channels", [1, 2, 4])
+@pytest.mark.parametrize("dtype,page", WRITE_PAGES)
+def test_push_commit_kernel_full_flush_matches_plain(cuda, channels, dtype,
+                                                     page):
+    """N = 8, budget 8: every home's 8 x 8 grid steps write each of its 64
+    slots once, the whole pool."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(9)
+    n, ppn, budget = 8, 64, 8
+    cb = budget // channels
+    pool = _pool(gen, n * ppn, dtype, cuda, page)
+    slots = torch.stack([torch.randperm(ppn, generator=gen, device=cuda)
+                         for _ in range(n)]).view(n, n, budget).to(torch.int32)
+    data = _pool(gen, n * budget, dtype, cuda, page).view((n, budget) + page)
+    base = torch.zeros((n,), dtype=torch.int32, device=cuda)
+    before = bg.push_commit.launches
+    got = bg.push_commit(pool.clone(), slots, data, base, channels=channels,
+                         cb=cb)
+    want = pool.clone()
+    bg.push_commit_plain(want.view(n * ppn, -1), slots,
+                         data.view(n, budget, -1), base, channels, cb)
+    assert bg.push_commit.launches == before + 1
+    assert torch.equal(got, want)
+    assert not (got == pool).view(n * ppn, -1).all(1).any()
+
+
+def _write_operands(cuda):
+    """A scatter and a push round on the main path's page rows."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(10)
+    n, ppn, lanes, page = 8, 8, 4, (16, 8, 128)
+    pool = _pool(gen, n * ppn, torch.bfloat16, cuda, page)
+    slots = torch.randint(-1, n * ppn, (lanes,), generator=gen, device=cuda,
+                          dtype=torch.int32)
+    data = _pool(gen, lanes, torch.bfloat16, cuda, page)
+    pslots = torch.randint(-1, ppn, (n, n, lanes), generator=gen,
+                           device=cuda, dtype=torch.int32)
+    pdata = _pool(gen, n * lanes, torch.bfloat16, cuda, page).view(
+        (n, lanes) + page)
+    base = torch.zeros((n,), dtype=torch.int32, device=cuda)
+    return pool, slots, data, pslots, pdata, base
+
+
+def _misaligned(x):
+    """x's values in a view that starts 2 bytes into a bf16 buffer."""
+    buf = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    return view
+
+
+def _strided(x):
+    """x's values in a view that is not contiguous."""
+    return torch.stack([x, x], -1)[..., 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fault,match", [
+    ("int64 ids", "int32"), ("misaligned data", "16-byte"),
+    ("not contiguous", "contiguous"), ("cpu operand", "one device")])
+def test_write_kernels_refuse_what_they_cannot_take(cuda, fault, match):
+    pool, slots, data, pslots, pdata, base = _write_operands(cuda)
+    bad = {"int64 ids": lambda ids, d: (ids.long(), d),
+           "misaligned data": lambda ids, d: (ids, _misaligned(d)),
+           "not contiguous": lambda ids, d: (_strided(ids), _strided(d)),
+           "cpu operand": lambda ids, d: (ids.cpu(), d)}[fault]
+    before = (bg.scatter_pages.launches, bg.push_commit.launches)
+    s_ids, s_data = bad(slots, data)
+    with pytest.raises(ValueError, match=match):
+        bg.scatter_pages(pool, s_ids, s_data)
+    p_ids, p_data = bad(pslots, pdata)
+    with pytest.raises(ValueError, match=match):
+        bg.push_commit(pool, p_ids, p_data, base, channels=1, cb=4)
+    assert (bg.scatter_pages.launches, bg.push_commit.launches) == before
+
+
+@pytest.mark.gpu
+def test_write_kernels_replay_in_a_cuda_graph(cuda):
+    """Ten scatters and ten push rounds recorded in one CUDA graph and
+    replayed give what ten calls of the plain versions give."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(11)
+    n, ppn, lanes, page, calls = 8, 8, 8, (16, 8, 128), 10
+    rows = n * ppn
+    pool0 = _pool(gen, rows, torch.bfloat16, cuda, page)
+    slots = [_wide_slots(gen, lanes, rows, cuda) for _ in range(calls)]
+    data = [_pool(gen, lanes, torch.bfloat16, cuda, page)
+            for _ in range(calls)]
+    pslots = [torch.randint(-1, ppn + 1, (n, n, lanes), generator=gen,
+                            device=cuda, dtype=torch.int32)
+              for _ in range(calls)]
+    pdata = _pool(gen, n * 2 * lanes, torch.bfloat16, cuda, page).view(
+        (n, 2 * lanes) + page)
+    bases = [torch.randint(0, 2 * lanes, (n,), generator=gen, device=cuda,
+                           dtype=torch.int32) for _ in range(calls)]
+    pool_s, pool_p = pool0.clone(), pool0.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up: build, load, bind
+        bg.scatter_pages(pool_s.clone(), slots[0], data[0])
+        bg.push_commit(pool_p.clone(), pslots[0], pdata, bases[0],
+                       channels=2, cb=4)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            bg.scatter_pages(pool_s, slots[i], data[i])
+            bg.push_commit(pool_p, pslots[i], pdata, bases[i], channels=2,
+                           cb=4)
+    pool_s.copy_(pool0)
+    pool_p.copy_(pool0)
+    graph.replay()
+    torch.cuda.synchronize()
+    want_s, want_p = pool0.clone(), pool0.clone()
+    for i in range(calls):
+        bg.scatter_pages_plain(want_s.view(rows, -1), slots[i],
+                               data[i].view(lanes, -1))
+        bg.push_commit_plain(want_p.view(rows, -1), pslots[i],
+                             pdata.view(n, 2 * lanes, -1), bases[i], 2, 4)
+    assert torch.equal(pool_s, want_s)
+    assert torch.equal(pool_p, want_p)
+    assert not torch.equal(pool_p, pool0)
+
+
 # flash: (B, Sq, Sk, H, kv, hd, causal, window, q_offset)
 FLASH = [
     (2, 256, 256, 32, 8, 128, True, 0, 0),

@@ -263,7 +263,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
                                "flash_attention", "flash_attention_wgmma",
                                "paged_attention", "stream"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
-        _build.load("bridge_gather", {})
+        _build.bind("bridge_gather", "repro_gather_pages", "7q")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
 
@@ -291,6 +291,20 @@ def test_launcher_runs_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "kv=bridge_pull batch=2 steps=3 device=cpu" in out
     assert "ms/step" in out
+
+
+def test_launcher_local_runs_past_max_len_on_cpu(capsys):
+    """20 steps of a 16-position local cache: the writes past max_len drop,
+    as the reference's launcher with the same flags does, and decoding goes
+    on to print its tokens."""
+    from repro_torch.launch import serve
+    serve.main(["--arch", "granite-3-8b", "--reduced", "--device", "cpu",
+                "--kv", "local", "--batch", "2", "--steps", "20",
+                "--max-len", "16"])
+    out = capsys.readouterr().out
+    assert "kv=local batch=2 steps=20 device=cpu" in out
+    sample = out.split("sample:")[1].strip()
+    assert len(sample.strip("[]").split(",")) == 16
 
 
 def test_launcher_runs_nnode_on_cpu(capsys):
