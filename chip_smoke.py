@@ -25,10 +25,14 @@ prints no result):
               FREE, out-of-pool and duplicate lanes; push_commit writing
               every slot of 8 homes, channels 1, 2 and 4), bit-exact.
               Times of kernel, plain version and one equivalent PyTorch
-              call, beside the bound; the write kernels' wrappers timed in
-              turns with their library call (median of five rounds), the
-              time of a call replayed from a CUDA graph of 100 calls and
-              where a wrapper call's host time goes;
+              call, beside the bound; the wrappers of gather, scatter,
+              push_commit and every STREAM pass timed in turns with their
+              library call (median of five rounds); for the gather and the
+              write kernels the time of a call replayed from a CUDA graph
+              of 100 calls; where a wrapper call's host time goes (the
+              1-node gather, STREAM scale bf16 and the write kernels); and
+              each kernel's device time from the profiler, taken after
+              every host timing of the phase;
 3. full     — granite-3-8b at full width and depth (40 layers, d_model 4096,
               32/8 heads, vocab 49155) in bf16 with weights from a seeded
               generator: batch 8, max_len 1024, page_tokens 16, budget 8,
@@ -202,8 +206,9 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
 
 def device_us(fn, kernel: str, calls: int = 20) -> float:
     """Mean device time, in us, of the kernel whose name holds ``kernel``
-    over ``calls`` calls of ``fn``, from the profiler: the kernel alone,
-    without the host's issue time that back-to-back calls may wait on."""
+    (any operation on the card for "") over ``calls`` calls of ``fn``, from
+    the profiler: the kernel alone, without the host's issue time that
+    back-to-back calls may wait on.  Each call must run it once."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -246,30 +251,73 @@ def graph_ms(fn, calls: int = 100, replays: int = 20) -> float:
     return start.elapsed_time(end) / (replays * calls)
 
 
-def host_us(fn, iters: int = 2000) -> float:
+def host_us(fn, iters: int = 2000, chunk: int = 100) -> float:
     """Mean host time, in us, until one call of ``fn`` returns, over
-    ``iters`` calls (the card runs behind; each kernel takes less time on
-    it than its call takes on the host)."""
+    ``iters`` calls timed in chunks of ``chunk``; the card drains between
+    chunks, outside the timing, so a full launch queue never holds a call
+    back (a long kernel, STREAM's, would otherwise set the pace)."""
     fn()
     torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    dt = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    return dt / iters * 1e6
+    dt = 0.0
+    for _ in range(iters // chunk):
+        t0 = time.perf_counter()
+        for _ in range(chunk):
+            fn()
+        dt += time.perf_counter() - t0
+        torch.cuda.synchronize()
+    return dt / (iters // chunk * chunk) * 1e6
 
 
-def host_breakdown(name: str, pool, wrapper, check, launch,
-                   library) -> dict:
-    """Where one wrapper call's host time goes: the whole call, its operand
-    checks, the raw stream getter, the bare C launch with its arguments
-    ready, and one library call, each timed alone on the host."""
-    out = dict(wrapper_us=host_us(wrapper), checks_us=host_us(check),
-               stream_us=host_us(lambda: _build.stream_of(pool)),
-               c_launch_us=host_us(launch), library_us=host_us(library))
+def host_breakdown(name: str, **parts) -> dict:
+    """Where one wrapper call's host time goes: each part (the whole call,
+    its operand checks, its output allocation, the raw stream getter, the
+    bare C launch with its arguments ready, one library call) timed alone
+    on the host, in us."""
+    out = {f"{part}_us": host_us(fn) for part, fn in parts.items()}
     print(f"host {name}:", json.dumps(out))
     return out
+
+
+def in_turns(entry: dict, name: str, call, library, *, iters: int = 200,
+             graph: bool = False, host=None) -> None:
+    """The numbers of a wrapper that may be host-bound.  The wrapper and its
+    library call are timed in turns, 5 rounds each, and their medians
+    become the entry's ``ms`` and ``library_ms`` (one round each moves with
+    the host by tens of percent); with ``graph``, the time of a call when
+    100 calls recorded in a CUDA graph are replayed; with ``host``, the
+    parts of :func:`host_breakdown` besides the whole call and the library
+    call."""
+    rounds = [(cuda_ms(call, iters=iters), cuda_ms(library, iters=iters))
+              for _ in range(5)]
+    entry["ms_rounds"], entry["library_ms_rounds"] = map(list, zip(*rounds))
+    entry["ms"] = statistics.median(entry["ms_rounds"])
+    entry["library_ms"] = statistics.median(entry["library_ms_rounds"])
+    print(f"kernel {name}: in turns with its library call, wrapper "
+          f"{entry['ms_rounds']} ms, library {entry['library_ms_rounds']} ms")
+    if graph:
+        entry["graph_ms"] = graph_ms(call)
+    if host is not None:
+        entry["host"] = host_breakdown(name, wrapper=call, **host,
+                                       library=library)
+
+
+def profile_deferred(profiled: list) -> None:
+    """Device time of each (entry, name, call, kernel[, library]) from the
+    profiler, after every host timing of phase 2: in this smoke's runs,
+    launches timed after a profiler session took longer on the host.  With
+    a library call that runs one operation on the card, its device time
+    too."""
+    for entry, name, call, kernel, *library in profiled:
+        entry["device_us"] = device_us(call, kernel)
+        graph = ("" if "graph_ms" not in entry else
+                 f", CUDA-graph replay {entry['graph_ms']:.5f} ms a call")
+        lib = ("null" if entry["library_ms"] is None
+               else f"{entry['library_ms']:.4f}")
+        if library:
+            entry["library_device_us"] = device_us(library[0], "")
+            lib += f" (device {entry['library_device_us']:.2f} us)"
+        print(f"kernel {name}: device {entry['device_us']:.2f} us, wrapper "
+              f"{entry['ms']:.4f} ms{graph}, library {lib} ms")
 
 
 def reset_launches() -> None:
@@ -346,7 +394,12 @@ def check_stream(report, path, q, kp, vp, seq, lv, m, l, o) -> None:
            flops=n_live * (4 * h * t * hd + h * t), note=f", W={w}")
 
 
-def check_gather(report, path, pool, reqs) -> torch.Tensor:
+def check_gather(report, path, pool, reqs, profiled: list,
+                 host: bool = False) -> torch.Tensor:
+    """gather_pages bit for bit against its plain version, then timed in
+    turns with ``index_select`` x mask and from a CUDA graph; with
+    ``host``, where a call's host time goes.  The call is added to
+    ``profiled``."""
     pool2 = pool.view(pool.shape[0], -1)
     row_bytes = pool2.shape[1] * pool2.element_size()
     got = bg.gather_pages(pool, reqs)
@@ -357,13 +410,27 @@ def check_gather(report, path, pool, reqs) -> torch.Tensor:
                              f"version ({path})")
     mask = (flat >= 0)[:, None].to(pool.dtype)
     safe = flat.clamp(min=0)
-    record(report, "gather_pages", path, err=0.0,
-           ms=cuda_ms(lambda: bg.gather_pages(pool, reqs)),
-           plain_ms=cuda_ms(lambda: bg.gather_pages_plain(pool2, flat)),
-           library_ms=cuda_ms(lambda: torch.index_select(pool2, 0, safe)
-                              * mask),
-           nbytes=(int((flat >= 0).sum()) + flat.numel()) * row_bytes
-           + flat.numel() * 4, note=f", W={flat.numel()}")
+    library = lambda: torch.index_select(pool2, 0, safe) * mask  # noqa: E731
+    if not torch.equal(library().view_as(got), want):
+        raise AssertionError("index_select x mask is not the gather")
+    call = functools.partial(bg.gather_pages, pool, reqs)
+    entry = record(report, "gather_pages", path, err=0.0, ms=cuda_ms(call),
+                   plain_ms=cuda_ms(lambda: bg.gather_pages_plain(pool2,
+                                                                  flat)),
+                   library_ms=cuda_ms(library),
+                   nbytes=(int((flat >= 0).sum()) + flat.numel()) * row_bytes
+                   + flat.numel() * 4, note=f", W={flat.numel()}")
+    shape = reqs.shape + pool.shape[1:]
+    args = (pool.data_ptr(), reqs.data_ptr(), got.data_ptr(), pool.shape[0],
+            flat.numel(), row_bytes, _build.stream_of(pool))
+    in_turns(entry, f"gather_pages ({path})", call, library, graph=True,
+             host=None if not host else dict(
+                 checks=lambda: _build.on_cpu("gather_pages", pool,
+                                              ids=(reqs,)),
+                 alloc=lambda: pool.new_empty(shape),
+                 stream=lambda: _build.stream_of(pool),
+                 c_launch=lambda: bg._gather_c(*args)))
+    profiled.append((entry, f"gather_pages ({path})", call, "gather_rows"))
     return got
 
 
@@ -379,7 +446,10 @@ def nnode_round(dev, rows: int, ppn: int):
     return table, program, ab, want
 
 
-def check_kernels(report: dict, dev="cuda") -> None:
+def check_kernels(report: dict, dev="cuda") -> list:
+    """The decode paths' page kernels and the stream fold at their shapes.
+    Returns the calls whose device time the profiler takes once every host
+    timing of phase 2 is done (:func:`profile_deferred`)."""
     gen = torch.Generator(device=dev)
     gen.manual_seed(1)
     b, h, kv, hd, t, w = 8, 32, 8, 128, 16, 8
@@ -391,10 +461,12 @@ def check_kernels(report: dict, dev="cuda") -> None:
     pool2 = pool.view(rows, -1)
     row_bytes = pool2.shape[1] * pool2.element_size()
 
+    profiled = []
     # -- one-node path: W = 8 lanes ------------------------------------------
     check_gather(report, "1-node", pool,
                  torch.tensor([5, -1, 130, 7, 511, -1, 0, 64],
-                              dtype=torch.int32, device=dev))
+                              dtype=torch.int32, device=dev), profiled,
+                 host=True)
     # scatter: one FREE lane and a live duplicate (the later lane wins)
     slots = torch.tensor([3, 90, -1, 200, 3, 17, 400, 511], dtype=torch.int32,
                          device=dev)
@@ -416,16 +488,16 @@ def check_kernels(report: dict, dev="cuda") -> None:
         library_ms=cuda_ms(lambda: pool_p.view(rows, -1).index_copy_(
             0, lib_idx, lib_data)),
         nbytes=2 * len(written) * row_bytes + slots.numel() * 4)
-    profiled = [(entry, "scatter_pages", scatter, "scatter_rows")]
+    profiled.append((entry, "scatter_pages", scatter, "scatter_rows"))
     args = (pool_k.data_ptr(), slots.data_ptr(), data.data_ptr(), rows, w,
             row_bytes, _build.stream_of(pool_k))
-    write_kernel_extras(
-        entry, "scatter_pages", pool_k, scatter,
-        check=lambda: _build.on_cpu("scatter_pages", pool_k, data,
-                                    ids=(slots,)),
-        launch=lambda: bg._scatter_c(*args),
-        library=lambda: pool_p.view(rows, -1).index_copy_(0, lib_idx,
-                                                          lib_data))
+    in_turns(entry, "scatter_pages", scatter,
+             lambda: pool_p.view(rows, -1).index_copy_(0, lib_idx, lib_data),
+             graph=True, host=dict(
+                 checks=lambda: _build.on_cpu("scatter_pages", pool_k, data,
+                                              ids=(slots,)),
+                 stream=lambda: _build.stream_of(pool_k),
+                 c_launch=lambda: bg._scatter_c(*args)))
     # stream: lanes of three sequences and two dead lanes, mid-decode state
     q = torch.randn((b, h, hd), generator=gen, device=dev).bfloat16()
     m = torch.randn((b, h), generator=gen, device=dev)
@@ -451,7 +523,7 @@ def check_kernels(report: dict, dev="cuda") -> None:
         if not torch.equal(got, want_pc):
             raise AssertionError(f"pull_commit disagrees with its plain "
                                  f"version (channels {channels})")
-    send = check_gather(report, "8-node", pool, send_rows)
+    send = check_gather(report, "8-node", pool, send_rows, profiled)
     send_v = bg.gather_pages(pool_v, send_rows)
     live_rows = int((choice >= 0).sum())
     record(report, "pull_commit", "8-node", err=0.0,
@@ -506,41 +578,14 @@ def check_kernels(report: dict, dev="cuda") -> None:
     args = (pool_k.data_ptr(), pslots.data_ptr(), payload.data_ptr(),
             base.data_ptr(), ppn, NODES, NODES, 8, 8, 1, row_bytes,
             _build.stream_of(pool_k))
-    write_kernel_extras(
-        entry, "push_commit", pool_k, push,
-        check=lambda: _build.on_cpu("push_commit", pool_k, payload,
-                                    ids=(pslots, base)),
-        launch=lambda: bg._push_c(*args),
-        library=lambda: pool_p.view(rows, -1).index_copy_(0, lib_idx,
-                                                          lib_data))
-    profiled += check_full_flush(report, gen, pool, dev)
-    # The profiler after every host timing: in this smoke's runs, launches
-    # timed after a profiler session took longer on the host.
-    for entry, name, call, kernel in profiled:
-        entry["device_us"] = device_us(call, kernel)
-        graph = ("" if "graph_ms" not in entry else
-                 f", CUDA-graph replay {entry['graph_ms']:.5f} ms a call")
-        print(f"kernel {name}: device {entry['device_us']:.2f} us, wrapper "
-              f"{entry['ms']:.4f} ms{graph}, library "
-              f"{entry['library_ms']:.4f} ms")
-
-
-def write_kernel_extras(entry, name, pool, call, *, check, launch,
-                        library) -> None:
-    """The redesigned write kernels' extra numbers.  The wrapper and its
-    library call, both host-bound, are timed in turns, 5 rounds each, and
-    their medians become the entry's ``ms`` and ``library_ms`` (one round
-    each moves with the host by tens of percent); then the time of a call
-    when 100 calls recorded in a CUDA graph are replayed, and where a
-    wrapper call's host time goes."""
-    rounds = [(cuda_ms(call), cuda_ms(library)) for _ in range(5)]
-    entry["ms_rounds"], entry["library_ms_rounds"] = map(list, zip(*rounds))
-    entry["ms"] = statistics.median(entry["ms_rounds"])
-    entry["library_ms"] = statistics.median(entry["library_ms_rounds"])
-    print(f"kernel {name}: in turns with its library call, wrapper "
-          f"{entry['ms_rounds']} ms, library {entry['library_ms_rounds']} ms")
-    entry["graph_ms"] = graph_ms(call)
-    entry["host"] = host_breakdown(name, pool, call, check, launch, library)
+    in_turns(entry, "push_commit", push,
+             lambda: pool_p.view(rows, -1).index_copy_(0, lib_idx, lib_data),
+             graph=True, host=dict(
+                 checks=lambda: _build.on_cpu("push_commit", pool_k, payload,
+                                              ids=(pslots, base)),
+                 stream=lambda: _build.stream_of(pool_k),
+                 c_launch=lambda: bg._push_c(*args)))
+    return profiled + check_full_flush(report, gen, pool, dev)
 
 
 def check_full_flush(report: dict, gen, pool, dev="cuda") -> list:
@@ -815,13 +860,15 @@ def stream_calls(q: float = 3.0) -> dict:
     }
 
 
-def check_stream_passes(report: dict, gen, dev="cuda") -> dict:
+def check_stream_passes(report: dict, gen, dev="cuda"):
     """The STREAM passes bit for bit against their plain versions at the
     paper's 10,000,000 elements and at 1,003, float32 and bf16; times at
     10M, rotating over 4 sets of arrays (at least 240 MB) so that
-    back-to-back calls do not run from the 50 MB L2.  Returns the local
-    rates in MiB/s, the paper's unit."""
-    rates = {}
+    back-to-back calls do not run from the 50 MB L2, each wrapper in turns
+    with its library call.
+    Returns the local rates in MiB/s, the paper's unit, and the calls whose
+    device time the profiler takes after phase 2's host timings."""
+    rates, profiled = {}, []
     for dtype, name in ((torch.float32, "float32"),
                         (torch.bfloat16, "bfloat16")):
         for n in STREAM_SIZES:
@@ -835,25 +882,38 @@ def check_stream_passes(report: dict, gen, dev="cuda") -> dict:
                 if n != STREAM_SIZES[0]:
                     continue
 
-                def timed(fn):
+                def rotating(fn, sets=sets):
                     it = itertools.cycle(sets)
-                    return cuda_ms(lambda: fn(*next(it)), iters=100)
+                    return lambda: fn(*next(it))
 
-                it = itertools.cycle(sets)
-                kernel_us = device_us(lambda: kernel(*next(it)),
-                                      "stream_pass_kernel")
                 entry = record(
                     report, "stream", f"{op} {name}", err=0.0,
-                    ms=timed(kernel), plain_ms=timed(plain),
-                    library_ms=timed(library),
+                    ms=cuda_ms(rotating(kernel), iters=100),
+                    plain_ms=cuda_ms(rotating(plain), iters=100),
+                    library_ms=cuda_ms(rotating(library), iters=100),
                     nbytes=STREAM_BYTES[op] * n * sets[0][0].element_size(),
-                    flops=STREAM_FLOPS[op] * n,
-                    note=f", n={n}", dev_us=kernel_us)
+                    flops=STREAM_FLOPS[op] * n, note=f", n={n}")
+                host = None
+                if (op, dtype) == ("scale", torch.bfloat16):
+                    c, out = sets[0][2], torch.empty_like(sets[0][2])
+                    args = (st._DTYPE_CODE[dtype], 1, c.data_ptr(), 0,
+                            out.data_ptr(), n, 3.0, _build.stream_of(c))
+                    host = dict(
+                        checks=lambda: _build.on_cpu("stream_scale", c,
+                                                     aligned=False),
+                        alloc=lambda: torch.empty_like(c),
+                        stream=lambda: _build.stream_of(c),
+                        c_launch=lambda: st._stream_c(*args))
+                in_turns(entry, f"stream {op} {name}", rotating(kernel),
+                         rotating(library), iters=100, host=host,
+                         graph=host is not None)
+                profiled.append((entry, f"stream {op} {name}",
+                                 rotating(kernel), "stream_pass_kernel",
+                                 rotating(library)))
                 rates[f"{op} {name}"] = (STREAM_BYTES[op] * n
                                          * sets[0][0].element_size()
                                          / (entry["ms"] / 1e3) / 2 ** 20)
-            del sets
-    return rates
+    return rates, profiled
 
 
 # ---------------------------------------------------------------------------
@@ -1459,14 +1519,18 @@ def main() -> int:
     report = {name: dict(name=name, route="cuda", source=k["source"],
                          replaces=k["replaces"], launches=0, by_path={})
               for name, k in KERNELS.items()}
-    check_kernels(report)
+    t_phase = time.perf_counter()
+    profiled = check_kernels(report)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(4)
-    check_flash(report, gen)
-    check_paged(report, gen)
-    rates = check_stream_passes(report, gen)
+    rates, more = check_stream_passes(report, gen)
     print(f"stream local rates, MiB/s ({card}):",
           json.dumps({k: round(v, 1) for k, v in rates.items()}))
+    profile_deferred(profiled + more)
+    del profiled, more
+    check_flash(report, gen)
+    check_paged(report, gen)
+    print(f"kernel checks: {time.perf_counter() - t_phase:.1f} s")
     # The top-level numbers of a kernel are those of its headline
     # measurement (the 8-node path's shapes where it runs there); ``by_path``
     # keeps every measurement and path.

@@ -1,9 +1,12 @@
 """Architecture registry of the port.
 
-``get_config(arch_id)`` returns the full-size ModelConfig;
-``get_reduced(arch_id)`` returns the same-family smoke-test config.  Only
-``granite-3-8b`` is registered: the other architectures of the reference
-come with the port's later slices (prefill and the other model families).
+``get_config(arch_id)`` returns the full-size config: a ModelConfig for
+``granite-3-8b``, and for ``paper-stream`` the paper's own case study
+(``paper_stream.StreamCaseStudy``: STREAM over the bridge, not an LM).
+``get_reduced(arch_id)`` returns the same-family smoke-test config of an LM
+(``paper-stream`` has none); ``lm_archs()`` lists the registered LMs.  The
+other architectures of the reference come with the port's later slices
+(prefill and the other model families).
 """
 from __future__ import annotations
 
@@ -11,7 +14,7 @@ import importlib
 
 from repro_torch.config import ModelConfig, reduced
 
-ARCH_IDS = ("granite-3-8b",)
+ARCH_IDS = ("granite-3-8b", "paper-stream")
 
 
 def get_config(arch_id: str) -> ModelConfig:
@@ -26,3 +29,7 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def get_reduced(arch_id: str) -> ModelConfig:
     return reduced(get_config(arch_id))
+
+
+def lm_archs() -> list[str]:
+    return [a for a in ARCH_IDS if a != "paper-stream"]

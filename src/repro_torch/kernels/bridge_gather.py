@@ -80,13 +80,14 @@ def gather_pages(pool: torch.Tensor, reqs: torch.Tensor) -> torch.Tensor:
         pool2, page_shape = _flatten_pages(pool)
         return gather_pages_plain(pool2, reqs.reshape(-1)).view(
             tuple(reqs.shape) + page_shape)
-    out = torch.empty(reqs.shape + pool.shape[1:], dtype=pool.dtype,
-                      device=pool.device)
+    out = pool.new_empty(reqs.shape + pool.shape[1:])
     w = reqs.numel()
     if w == 0:
         return out
-    rows, row_bytes = _rows(pool)
-    _check_vectors("gather_pages", row_bytes)
+    rows = pool.shape[0]
+    row_bytes = pool.nbytes // rows if rows else 0
+    if row_bytes % 16:
+        _check_vectors("gather_pages", row_bytes)
     global _gather_c
     if _gather_c is None:
         _gather_c = _build.bind(_SOURCE, "repro_gather_pages",

@@ -61,9 +61,32 @@
 // own slot saves a round trip for a live write but costs every dead block
 // 256 loads, and a decode round is mostly dead blocks.
 //
-// gather and pull_commit keep one block per request lane, which reads its
-// own row id (there is no scalar prefetch) and copies one row with 16-byte
-// vector loads and stores.
+// gather, redesigned.  At the 1-node decode round (W = 8 lanes of 32 KiB,
+// about 6 live) it moves ~0.45 MB, so it is bound by latency: the launch,
+// then two dependent round trips to memory, the lane's row id and then the
+// row.  The first design ran one block a lane, 8 blocks on 132 SMs, each
+// thread storing a vector before it loaded the next, so a row took eight
+// round trips (1.92 us in a decode step against a 0.137 us byte bound;
+// PERF.md, section 6).  Now a row is cut into chunks of
+// kGatherChunk vectors (4 KiB), one block a chunk (64 blocks at W = 8),
+// and each thread loads its kGatherBatch vectors before it stores any, so
+// the whole round is in flight after the row ids arrive.  At the 8-node
+// send buffer (W = 512 lanes, ~56 live, so mostly zero stores: 16 MiB
+// written, 1.75 MiB read) it is bound by bytes; there a FREE lane's chunk
+// stores zeros and reads nothing, and 4,096 blocks keep HBM busy.
+//
+// Tried and dropped for gather: Hopper's bulk asynchronous copy, one
+// thread a chunk issuing cp.async.bulk from global into shared memory,
+// completing on an mbarrier, then the bulk store back to global, at chunks
+// of 2, 4, 8 and 16 KiB.  It was slower at the 1-node round at every chunk
+// size (the barrier adds to the same two round trips) and no faster at
+// the 8-node buffer, whose FREE chunks store zeros either way
+// (development runs; PERF.md, section 6).  Chunks of 2 and 8 KiB, and
+// 64 or 256 threads a block, were no faster than 4 KiB at 128 threads.
+//
+// pull_commit keeps one block per request lane, which reads its own row id
+// (there is no scalar prefetch) and copies one row with 16-byte vector
+// loads and stores.
 //
 // Rows are moved as raw bytes, so one kernel serves every element type; the
 // wrapper checks that a row is a multiple of 16 bytes and 16-byte aligned.
@@ -77,24 +100,46 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kBatch = 8;  // 16-byte vectors a thread holds in flight
+// gather: a block moves one chunk of a row, kGatherBatch vectors a thread.
+constexpr int kGatherThreads = 128;
+constexpr int kGatherBatch = 2;
+constexpr int kGatherChunk = kGatherThreads * kGatherBatch;  // 4 KiB
 
-__global__ void gather_rows(const int4* __restrict__ pool,
-                            const int* __restrict__ reqs,
-                            int4* __restrict__ out, long long rows,
-                            long long vecs) {
-  const long long lane = blockIdx.x;
+// One block a chunk of kGatherChunk vectors of one lane's row: block b
+// serves lane b / chunks, chunk b % chunks.  A FREE lane's chunk stores
+// zeros and reads nothing; a live one loads its kGatherBatch vectors a
+// thread before it stores any.
+__global__ void __launch_bounds__(kGatherThreads)
+    gather_rows(const int4* __restrict__ pool, const int* __restrict__ reqs,
+                int4* __restrict__ out, long long rows, long long vecs,
+                int chunks) {
+  const long long lane = blockIdx.x / chunks;
+  const long long j0 =
+      static_cast<long long>(blockIdx.x % chunks) * kGatherChunk + threadIdx.x;
   const int r = reqs[lane];
   int4* dst = out + lane * vecs;
   if (r < 0) {
-    const int4 zero = make_int4(0, 0, 0, 0);
-    for (long long j = threadIdx.x; j < vecs; j += blockDim.x) dst[j] = zero;
+#pragma unroll
+    for (int u = 0; u < kGatherBatch; ++u) {
+      const long long j = j0 + u * kGatherThreads;
+      if (j < vecs) dst[j] = make_int4(0, 0, 0, 0);
+    }
     return;
   }
   // A row id past the pool reads the last row, as the reference's fetch does.
   const long long row = r < rows ? r : rows - 1;
   const int4* src = pool + row * vecs;
-  for (long long j = threadIdx.x; j < vecs; j += blockDim.x)
-    dst[j] = __ldg(src + j);
+  int4 v[kGatherBatch];
+#pragma unroll
+  for (int u = 0; u < kGatherBatch; ++u) {
+    const long long j = j0 + u * kGatherThreads;
+    if (j < vecs) v[u] = __ldg(src + j);
+  }
+#pragma unroll
+  for (int u = 0; u < kGatherBatch; ++u) {
+    const long long j = j0 + u * kGatherThreads;
+    if (j < vecs) dst[j] = v[u];
+  }
 }
 
 // Copy one row of `vecs` 16-byte vectors, or write zeros where src is null;
@@ -269,9 +314,15 @@ extern "C" int repro_gather_pages(const char* packed) {
   const long long row_bytes = a.i64(5);
   void* stream = a.ptr<void>(6);
   if (w == 0) return 0;
-  gather_rows<<<w, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  const long long vecs = row_bytes / 16;
+  const long long chunks = (vecs + kGatherChunk - 1) / kGatherChunk;
+  if (chunks == 0) return 0;
+  if (w * chunks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  gather_rows<<<static_cast<unsigned>(w * chunks), kGatherThreads, 0,
+                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int4*>(pool), reqs, static_cast<int4*>(out), rows,
-      row_bytes / 16);
+      vecs, static_cast<int>(chunks));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -2,27 +2,18 @@
 
 Ports ``repro.kernels.ops``: the STREAM passes, flash attention and paged
 decode attention, with the reference's defaults (``q=3.0`` for scale and
-triad, ``causal=True``).  The reference jits each wrapper and resolves its
-Pallas interpreter here; the port runs eagerly, and each call takes its
-kernel for CUDA tensors and its plain version for CPU tensors.
+triad, ``causal=True``; the STREAM functions carry theirs, so they are
+exported as they are, without a frame of their own).  The reference jits
+each wrapper and resolves its Pallas interpreter here; the port runs
+eagerly, and each call takes its kernel for CUDA tensors and its plain
+version for CPU tensors.
 """
 from __future__ import annotations
 
-import torch
-
-from repro_torch.kernels import stream as _stream
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.paged_attention import paged_attention
-from repro_torch.kernels.stream import stream_add, stream_copy
+from repro_torch.kernels.stream import (stream_add, stream_copy, stream_scale,
+                                        stream_triad)
 
 __all__ = ["stream_copy", "stream_scale", "stream_add", "stream_triad",
            "flash_attention", "paged_attention"]
-
-
-def stream_scale(c: torch.Tensor, q: float = 3.0) -> torch.Tensor:
-    return _stream.stream_scale(c, q)
-
-
-def stream_triad(b: torch.Tensor, c: torch.Tensor,
-                 q: float = 3.0) -> torch.Tensor:
-    return _stream.stream_triad(b, c, q)

@@ -4,7 +4,9 @@ Each pass takes 1-D float32 or bfloat16 tensors of any length, computes in
 float32 and stores in the input's dtype.  A CPU tensor runs the plain
 version beside the kernel; a CUDA tensor launches ``csrc/stream.cu`` (or
 raises), which rounds as the plain version does, so the two agree bit for
-bit.  Each wrapper counts its launches in ``<fn>.launches``.  The
+bit.  Each wrapper counts its launches in ``<fn>.launches``.  scale and
+triad take ``q=3.0`` by default, the default of the reference's ``ops``
+wrappers, so ``kernels.ops`` exports these functions as they are.  The
 reference's ``block_rows`` and ``interpret`` choose the TPU's tiling and
 interpreter and change no result; they do not exist here.
 """
@@ -37,31 +39,39 @@ def stream_triad_plain(b, c, q):
     return (b.float() + q * c.float()).to(b.dtype)
 
 
+def _refuse(what: str, x: torch.Tensor, y) -> None:
+    """Raise the error that names why :func:`_run` refused its operands."""
+    xs = (x,) if y is None else (x, y)
+    if x.dim() != 1 or (y is not None and y.shape != x.shape):
+        raise ValueError(f"{what}: operands must be 1-D of one length, got "
+                         f"{[list(t.shape) for t in xs]}")
+    raise ValueError(f"{what}: operands must share float32 or bfloat16, "
+                     f"got {[t.dtype for t in xs]}")
+
+
 def _run(fn, what: str, pass_: int, x: torch.Tensor, y=None,
          q: float = 0.0) -> torch.Tensor:
     """Check the operands and launch one pass; None when they lie on the
-    CPU (the caller runs the plain version)."""
-    xs = (x,) if y is None else (x, y)
-    if any(t.dim() != 1 for t in xs) or (y is not None
-                                          and y.shape != x.shape):
-        raise ValueError(f"{what}: operands must be 1-D of one length, got "
-                         f"{[list(t.shape) for t in xs]}")
-    if x.dtype not in _DTYPE_CODE or any(t.dtype != x.dtype for t in xs):
-        raise ValueError(f"{what}: operands must share float32 or bfloat16, "
-                         f"got {[t.dtype for t in xs]}")
+    CPU (the caller runs the plain version).  The kernel's case is one
+    pass of compares; only a refusal works out which rule broke."""
+    code = _DTYPE_CODE.get(x.dtype)
+    if code is None or x.dim() != 1 or (
+            y is not None and (y.shape != x.shape or y.dtype != x.dtype)):
+        _refuse(what, x, y)
     # Unaligned operands take the kernel's scalar loop.
-    if _build.on_cpu(what, *xs, aligned=False):
+    if (_build.on_cpu(what, x, aligned=False) if y is None
+            else _build.on_cpu(what, x, y, aligned=False)):
         return None
     out = torch.empty_like(x)
-    if x.numel() == 0:
+    n = x.numel()
+    if n == 0:
         return out
     global _stream_c
     if _stream_c is None:
         _stream_c = _build.bind("stream", "repro_stream", _FIELDS)
-    _build.check(_stream_c(
-        _DTYPE_CODE[x.dtype], pass_, x.data_ptr(),
-        0 if y is None else y.data_ptr(), out.data_ptr(), x.numel(),
-        float(q), _build.stream_of(x)), what)
+    _build.check(_stream_c(code, pass_, x.data_ptr(),
+                           0 if y is None else y.data_ptr(), out.data_ptr(),
+                           n, q, _build.stream_of(x)), what)
     fn.launches += 1
     return out
 
@@ -72,7 +82,7 @@ def stream_copy(c: torch.Tensor) -> torch.Tensor:
     return stream_copy_plain(c) if out is None else out
 
 
-def stream_scale(c: torch.Tensor, q: float) -> torch.Tensor:
+def stream_scale(c: torch.Tensor, q: float = 3.0) -> torch.Tensor:
     """b[i] = q * c[i] (STREAM 'scale')."""
     out = _run(stream_scale, "stream_scale", _SCALE, c, q=q)
     return stream_scale_plain(c, q) if out is None else out
@@ -84,7 +94,8 @@ def stream_add(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return stream_add_plain(a, b) if out is None else out
 
 
-def stream_triad(b: torch.Tensor, c: torch.Tensor, q: float) -> torch.Tensor:
+def stream_triad(b: torch.Tensor, c: torch.Tensor,
+                 q: float = 3.0) -> torch.Tensor:
     """a[i] = b[i] + q * c[i] (STREAM 'triad')."""
     out = _run(stream_triad, "stream_triad", _TRIAD, b, c, q=q)
     return stream_triad_plain(b, c, q) if out is None else out

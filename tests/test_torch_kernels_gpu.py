@@ -44,6 +44,68 @@ def test_gather_kernel_matches_plain(cuda, dtype, page):
     assert torch.equal(got, want)
 
 
+# Rows the gather's 4 KiB chunks make hard: one 16-byte vector, rows that
+# end inside a chunk (33,280 and 144 bytes), and the main path's 32 KiB.
+GATHER_PAGES = [(torch.bfloat16, (8,)), (torch.float32, (4,)),
+                (torch.bfloat16, (16, 8, 130)), (torch.float32, (3, 12)),
+                (torch.bfloat16, (16, 8, 128))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("w", [1, 8, 512])
+@pytest.mark.parametrize("dtype,page", GATHER_PAGES)
+def test_gather_kernel_chunks_match_plain(cuda, w, dtype, page):
+    """W = 1, the 1-node round's 8 lanes and the 8-node send buffer's 512
+    (mostly FREE); ids past the pool read its last row."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(12)
+    rows = 40
+    pool = _pool(gen, rows, dtype, cuda, page)
+    reqs = torch.randint(0, rows + 8, (w,), generator=gen, device=cuda,
+                         dtype=torch.int32)
+    free = torch.rand((w,), generator=gen, device=cuda) < (0.85 if w > 8
+                                                           else 0.25)
+    reqs = torch.where(free, -1, reqs)
+    if w == 1:
+        reqs.fill_(rows + 3)
+    else:
+        reqs[:2] = torch.tensor([-1, rows + 1], device=cuda)
+    before = bg.gather_pages.launches
+    got = bg.gather_pages(pool, reqs)
+    want = bg.gather_pages_plain(pool.view(rows, -1), reqs).view_as(got)
+    assert bg.gather_pages.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+def test_gather_kernel_replays_in_a_cuda_graph(cuda):
+    """Ten gathers of the 1-node round (W = 8) and ten of the 8-node send
+    buffer (W = 512) recorded in one CUDA graph, replayed after the pool
+    changed, give what the plain version gives on the new pool."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(13)
+    rows, calls = 64, 10
+    pool = _pool(gen, rows, torch.bfloat16, cuda)
+    reqs = [torch.randint(-1, rows + 2, (w,), generator=gen, device=cuda,
+                          dtype=torch.int32)
+            for w in (8, 512) for _ in range(calls)]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up: build, load, bind
+        bg.gather_pages(pool, reqs[0])
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [bg.gather_pages(pool, r) for r in reqs]
+    pool.copy_(_pool(gen, rows, torch.bfloat16, cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    for r, got in zip(reqs, outs):
+        want = bg.gather_pages_plain(pool.view(rows, -1), r).view_as(got)
+        assert torch.equal(got, want)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_scatter_kernel_matches_plain(cuda, dtype):
@@ -386,6 +448,47 @@ def test_stream_kernels_bit_exact(cuda, dtype, n):
                   st.stream_triad_plain(b[1:], c[1:], 0.7)))
     for got, want in pairs:
         assert torch.equal(got, want)
+
+
+# csrc/stream.cu: a block is kThreads = 256 threads, each holding kBatch = 2
+# 16-byte vectors of each input, and the grid is one block a tile.
+STREAM_THREADS, STREAM_BATCH = 256, 2
+
+
+def _stream_lengths(dtype):
+    """Lengths on either side of a vector, of one vector a thread of a
+    block, of a tile, of 1 to 8 full waves of blocks (one tile a block on
+    every SM), and of three times 8 waves with a ragged tail."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    tile = STREAM_THREADS * STREAM_BATCH * vec
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    edges = [vec, STREAM_THREADS * vec, tile] + [r * sms * tile
+                                                 for r in (1, 2, 4, 8)]
+    return sorted({n + d for n in edges for d in (-1, 1)}
+                  | {3 * 8 * sms * tile + vec + 1})
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stream_kernels_straddle_the_batch_and_the_grid(cuda, dtype):
+    """Bit-exact at every length of ``_stream_lengths``, aligned (the
+    vector loop and its scalar tail) and one element in (the scalar
+    loop)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(14)
+    lengths = _stream_lengths(dtype)
+    a, b, c = (torch.randn((lengths[-1] + 1,), generator=gen,
+                           device=cuda).to(dtype) for _ in range(3))
+    for n in lengths:
+        for off in (0, 1):
+            x, y, z = (t[off:off + n] for t in (a, b, c))
+            pairs = [(st.stream_copy(z), st.stream_copy_plain(z)),
+                     (st.stream_scale(z, 3.0), st.stream_scale_plain(z, 3.0)),
+                     (st.stream_add(x, y), st.stream_add_plain(x, y)),
+                     (st.stream_triad(y, z, 0.7),
+                      st.stream_triad_plain(y, z, 0.7))]
+            for got, want in pairs:
+                assert torch.equal(got, want), (n, off)
 
 
 @pytest.mark.gpu
