@@ -19,7 +19,11 @@ prints no result):
               mask and head-size cases, a row that sees no key among them
               (float32 2e-5, bf16 2e-2; each call must launch the variant
               its dtype names); paged decode attention at the serving
-              decode shapes (3e-5 / 3e-2); the STREAM passes at the paper's
+              decode shapes (3e-5 / 3e-2; its two kernels' device time
+              apart); the fold also at the decode paths' round kinds (all
+              FREE and one sequence's 8 lanes at W = 8; 3 live lanes in
+              each of 8 sequences at W = 64), both decode kernels bit-
+              identical from call to call; the STREAM passes at the paper's
               10,000,000 elements and at 1,003, bit-exact; the two write
               kernels also on whole-pool flushes (scatter at W = 1,024 with
               FREE, out-of-pool and duplicate lanes; push_commit writing
@@ -30,7 +34,8 @@ prints no result):
               library call (median of five rounds); for the gather and the
               write kernels the time of a call replayed from a CUDA graph
               of 100 calls; where a wrapper call's host time goes (the
-              1-node gather, STREAM scale bf16 and the write kernels); and
+              1-node gather, the fold's live W = 8 round, STREAM scale bf16
+              and the write kernels); and
               each kernel's device time from the profiler, taken after
               every host timing of the phase;
 3. full     — granite-3-8b at full width and depth (40 layers, d_model 4096,
@@ -42,9 +47,11 @@ prints no result):
               default bidirectional route program) is fed the same tokens
               and its logits are held to local's.  Each path's kernels must
               launch exactly the counts its shapes give, counted from 0 just
-              before the path runs.  The kernel API's paged decode attention
-              then reads layer 0 of the 8-node pool through the memport
-              table and is held to dense attention over local's cache;
+              before the path runs; a profiled step gives the fold's
+              launches one by one (mean, median, longest).  The kernel
+              API's paged decode attention then reads layer 0 of the 8-node
+              pool through the memport table and is held to dense attention
+              over local's cache;
 4. reduced  — reduced granite-3-8b in float32, a 16-token prompt then
               greedy: ``local`` and ``bridge_pull`` (1 and 8 nodes) emit
               identical tokens and logits within 1e-4;
@@ -204,27 +211,34 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_us(fn, kernel: str, calls: int = 20) -> float:
+def device_us(fn, kernel: str, calls: int = 20, tries: int = 5) -> float:
     """Mean device time, in us, of the kernel whose name holds ``kernel``
     (any operation on the card for "") over ``calls`` calls of ``fn``, from
     the profiler: the kernel alone, without the host's issue time that
-    back-to-back calls may wait on.  Each call must run it once."""
+    back-to-back calls may wait on.  Each call must run it once.  The
+    profiler now and then reports fewer kernels than ran (seen on the H100:
+    49 of 50, and 0 of 20 twice in a row); such a profile is taken again,
+    up to ``tries`` in all, and the count must match in the one whose time
+    is kept."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and kernel in e.key]
-    launches = sum(e.count for e in events)
-    if launches != calls:
-        raise AssertionError(f"profiled {launches} launches of {kernel} in "
-                             f"{calls} calls")
-    return sum(e.self_device_time_total for e in events) / launches
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and kernel in e.key]
+        launches = sum(e.count for e in events)
+        if launches == calls:
+            return sum(e.self_device_time_total for e in events) / launches
+        print(f"device_us: profiled {launches} launches of {kernel} in "
+              f"{calls} calls; profiling again", file=sys.stderr)
+    raise AssertionError(f"profiled {launches} launches of {kernel} in "
+                         f"{calls} calls, {tries} profiles running")
 
 
 def graph_ms(fn, calls: int = 100, replays: int = 20) -> float:
@@ -370,12 +384,20 @@ def record(report: dict, name: str, path: str, *, err: float, ms: float,
     return entry
 
 
-def check_stream(report, path, q, kp, vp, seq, lv, m, l, o) -> None:
-    got = ba.stream_decode_accumulate(q, kp, vp, seq, lv, m, l, o)
-    want = ba.stream_decode_accumulate_plain(q, kp, vp, seq, lv, m, l, o)
+def check_stream(report, path, q, kp, vp, seq, lv, m, l, o, profiled: list,
+                 host: bool = False) -> None:
+    """The decode-attention fold within 1e-5 of its plain version, bit for
+    bit from call to call, then timed beside its byte bound; the call is
+    added to ``profiled``, and with ``host`` where its host time goes."""
+    args = (q, kp, vp, seq, lv, m, l, o)
+    got = ba.stream_decode_accumulate(*args)
+    want = ba.stream_decode_accumulate_plain(*args)
     err = 0.0
-    for g_, w_ in zip(got, want):
+    for g_, a_, w_ in zip(got, ba.stream_decode_accumulate(*args), want):
         torch.testing.assert_close(g_, w_, **STREAM_TOL)
+        if not torch.equal(g_, a_):
+            raise AssertionError(f"stream_decode_accumulate ({path}) is not "
+                                 f"bit-identical from call to call")
         err = max(err, float((g_ - w_).abs().max()))
     b, h, hd = q.shape
     w, t, kv, _ = kp.shape
@@ -383,15 +405,30 @@ def check_stream(report, path, q, kp, vp, seq, lv, m, l, o) -> None:
     n_seq = len(set(seq[lv.bool()].tolist()))   # q is read for these only
     page_bytes = t * kv * hd * kp.element_size()
     state_bytes = (2 * b * h + b * h * hd) * 4
-    record(report, "stream_decode_accumulate", path, err=err,
-           ms=cuda_ms(lambda: ba.stream_decode_accumulate(
-               q, kp, vp, seq, lv, m, l, o)),
-           plain_ms=cuda_ms(lambda: ba.stream_decode_accumulate_plain(
-               q, kp, vp, seq, lv, m, l, o), iters=20),
-           library_ms=None,
-           nbytes=(n_seq * h * hd * q.element_size() + 2 * n_live * page_bytes
-                   + 2 * state_bytes + 2 * w * 4),
-           flops=n_live * (4 * h * t * hd + h * t), note=f", W={w}")
+    call = functools.partial(ba.stream_decode_accumulate, *args)
+    entry = record(
+        report, "stream_decode_accumulate", path, err=err, ms=cuda_ms(call),
+        plain_ms=cuda_ms(lambda: ba.stream_decode_accumulate_plain(*args),
+                         iters=20),
+        library_ms=None,
+        nbytes=(n_seq * h * hd * q.element_size() + 2 * n_live * page_bytes
+                + 2 * state_bytes + 2 * w * 4),
+        flops=n_live * (4 * h * t * hd + h * t), note=f", W={w}")
+    profiled.append((entry, f"stream_decode_accumulate ({path})", call,
+                     "stream_kernel"))
+    if host:
+        c_args = (ba._DTYPE_CODE[q.dtype], q.data_ptr(), kp.data_ptr(),
+                  vp.data_ptr(), seq.data_ptr(), lv.data_ptr(), m.data_ptr(),
+                  l.data_ptr(), o.data_ptr(), *(x.data_ptr() for x in got),
+                  b, h, kv, w, t, hd, hd ** -0.5, _build.stream_of(q))
+        entry["host"] = host_breakdown(
+            f"stream_decode_accumulate ({path})", wrapper=call,
+            checks=lambda: _build.on_cpu("stream_decode_accumulate", q, kp,
+                                         vp, m, l, o, ids=(seq, lv),
+                                         aligned=False),
+            alloc=lambda: ba.new_state(b, h, hd, q.device),
+            stream=lambda: _build.stream_of(q),
+            c_launch=lambda: ba._stream_c(*c_args))
 
 
 def check_gather(report, path, pool, reqs, profiled: list,
@@ -508,7 +545,13 @@ def check_kernels(report: dict, dev="cuda") -> list:
     seq = torch.tensor([0, 0, 0, 3, 3, 5, -1, -1], dtype=torch.int32,
                        device=dev)
     check_stream(report, "1-node", q, kp, vp, seq, (seq >= 0).to(torch.int32),
-                 m, l, o)
+                 m, l, o, profiled)
+    # the 1-node decode's two kinds of round: all FREE (a round past every
+    # sequence's flushed pages), and one sequence's 8 pages
+    for path, ids in (("free W=8", [-1] * w), ("live W=8", [5] * w)):
+        seq = torch.tensor(ids, dtype=torch.int32, device=dev)
+        check_stream(report, path, q, kp, vp, seq, (seq >= 0).to(torch.int32),
+                     m, l, o, profiled, host=path == "live W=8")
 
     # -- 8-node path: one pulled round and one flush --------------------------
     table, program, ab, want = nnode_round(dev, rows, ppn)
@@ -538,7 +581,14 @@ def check_kernels(report: dict, dev="cuda") -> list:
     wflat = want.reshape(-1)
     check_stream(report, "8-node", q, k_r, v_r,
                  torch.where(wflat >= 0, wflat // (rows // b), -1),
-                 (wflat >= 0).to(torch.int32), m, l, o)
+                 (wflat >= 0).to(torch.int32), m, l, o, profiled)
+    # the 8-node decode's live round: node j's first 3 lanes carry sequence
+    # j's flushed pages, the other 5 are FREE
+    seq = torch.where(torch.arange(NODES * w, device=dev) % w < 3,
+                      torch.arange(NODES * w, device=dev) // w, -1).to(
+        torch.int32)
+    check_stream(report, "live W=64 3x8", q, k_r, v_r, seq,
+                 (seq >= 0).to(torch.int32), m, l, o, profiled)
 
     # push: every sequence flushes its page 3, so home 3 lands 8 writes
     dest = (torch.arange(NODES, device=dev)[:, None] * (rows // b) + 3).to(
@@ -821,19 +871,29 @@ def check_paged(report: dict, gen, dev="cuda") -> None:
         if got[1].any():
             raise AssertionError("paged_attention: a sequence of length 0 "
                                  "gave nonzero output")
+        if not torch.equal(got, pa.paged_attention(q, kp, vp, table, lengths,
+                                                   max_pages=mp)):
+            raise AssertionError(f"paged_attention {name} is not "
+                                 f"bit-identical from call to call")
     pages = int((lengths // t).clamp(max=mp).sum())
     page_bytes = t * kv * hd * kp.element_size()
-    record(report, "paged_attention", "api", err=err,
-           ms=cuda_ms(lambda: pa.paged_attention(q, kp, vp, table, lengths,
-                                                 max_pages=mp)),
-           plain_ms=cuda_ms(lambda: pa.paged_attention_plain(
-               q, kp, vp, table, lengths, max_pages=mp), iters=20),
-           library_ms=None,
-           nbytes=2 * pages * page_bytes + 2 * q.numel() * q.element_size()
-           + table.numel() * 4 + b * 4,
-           flops=pages * (4 * h * t * hd + h * t), note=", B 8 bf16",
-           dev_us=device_us(lambda: pa.paged_attention(
-               q, kp, vp, table, lengths, max_pages=mp), "paged_kernel"))
+    call = functools.partial(pa.paged_attention, q, kp, vp, table, lengths,
+                             max_pages=mp)
+    entry = record(
+        report, "paged_attention", "api", err=err, ms=cuda_ms(call),
+        plain_ms=cuda_ms(lambda: pa.paged_attention_plain(
+            q, kp, vp, table, lengths, max_pages=mp), iters=20),
+        library_ms=None,
+        nbytes=2 * pages * page_bytes + 2 * q.numel() * q.element_size()
+        + table.numel() * 4 + b * 4,
+        flops=pages * (4 * h * t * hd + h * t), note=", B 8 bf16")
+    # a call is two kernels: the split folds, then the merge of the splits
+    entry["device_us_by_kernel"] = {
+        kernel: device_us(call, kernel) for kernel in ("paged_split_kernel",
+                                                       "paged_combine_kernel")}
+    entry["device_us"] = sum(entry["device_us_by_kernel"].values())
+    print(f"kernel paged_attention: device {entry['device_us']:.2f} us a "
+          f"call, by kernel", json.dumps(entry["device_us_by_kernel"]))
 
 
 STREAM_SIZES = (10_000_000, 1003)        # the paper's arrays; a ragged tail
@@ -1014,12 +1074,21 @@ def profile_step(label: str, run_step) -> dict:
             for k in ("gather_rows", "pull_commit_rows", "push_commit_rows",
                       "scatter_rows", "stream_kernel", fa.CUDA_CORES,
                       fa.WGMMA)}
+    # the fold's launches one by one: a few live rounds among many all-FREE
+    # ones, told apart by the median and the longest beside the mean
+    fold_us = sorted(e.self_device_time_total for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "stream_kernel" in e.name)
     out = dict(wall_ms=wall, device_ms=device,
                device_busy_share=device / wall if device else None,
                kernel_launches=sum(e.count for e in kernels),
                top_kernels=[(e.key[:60], e.count,
                              e.self_device_time_total / 1e3) for e in top],
                port_kernels_count_and_mean_device_ms=ours)
+    if fold_us:
+        out["stream_kernel_us"] = dict(
+            launches=len(fold_us), mean=statistics.fmean(fold_us),
+            median=statistics.median(fold_us), max=fold_us[-1])
     print(f"profile {label}:", json.dumps(out))
     return out
 

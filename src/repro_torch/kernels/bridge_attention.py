@@ -4,8 +4,9 @@
 ``[W, T, kv, hd]`` into the running float32 flash-decode state
 ``(m, l, acc)``, so decode attention never materializes more than one round
 of pulled pages.  A CPU tensor runs the plain PyTorch version beside the
-kernel; a CUDA tensor launches ``csrc/bridge_attention.cu`` (or raises).
-The wrapper counts its kernel launches in
+kernel; a CUDA tensor launches ``csrc/bridge_attention.cu`` (or raises; the
+kernel takes 16-byte aligned q, pages and o, and a head of a multiple of 16
+bytes).  The wrapper counts its kernel launches in
 ``stream_decode_accumulate.launches``.
 """
 from __future__ import annotations
@@ -51,6 +52,18 @@ def stream_decode_accumulate_plain(q, k_pages, v_pages, seq_ids, live,
     return m, l, o
 
 
+def new_state(b: int, h: int, hd: int, device):
+    """Uninitialized float32 ``(m [b, h], l [b, h], o [b, h, hd])``, views
+    of one buffer: o first, so it keeps the buffer's 16-byte alignment, and
+    l four-float aligned after m."""
+    n = b * h
+    pad = -(-n // 4) * 4
+    buf = torch.empty(n * hd + 2 * pad, dtype=torch.float32, device=device)
+    return (buf.as_strided((b, h), (h, 1), n * hd),
+            buf.as_strided((b, h), (h, 1), n * hd + pad),
+            buf.as_strided((b, h, hd), (h * hd, hd, 1), 0))
+
+
 def stream_decode_accumulate(q: torch.Tensor, k_pages: torch.Tensor,
                              v_pages: torch.Tensor, seq_ids: torch.Tensor,
                              live: torch.Tensor, m: torch.Tensor,
@@ -82,9 +95,15 @@ def stream_decode_accumulate(q: torch.Tensor, k_pages: torch.Tensor,
             or v_pages.dtype != q.dtype):
         raise ValueError(f"{what}: q, k and v must share float32 or bfloat16,"
                          f" got {q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
-    if any(x.dtype != torch.float32 for x in (m, l, o)):
+    if (m.dtype != torch.float32 or l.dtype != torch.float32
+            or o.dtype != torch.float32):
         raise ValueError(f"{what}: m, l and o must be float32")
-    m2, l2, o2 = torch.empty_like(m), torch.empty_like(l), torch.empty_like(o)
+    if ((q.data_ptr() | k_pages.data_ptr() | v_pages.data_ptr()
+         | o.data_ptr()) % 16 or hd * q.element_size() % 16):
+        raise ValueError(f"{what}: q, the pages and o must be 16-byte aligned"
+                         f" and head_dim x the element size a multiple of 16"
+                         f" bytes, got head_dim {hd}")
+    m2, l2, o2 = new_state(b, h, hd, q.device)
     if b == 0:
         return m2, l2, o2
     global _stream_c

@@ -5,135 +5,209 @@
 // stream_decode_accumulate (_stream_kernel): fold one round of W landed
 // pages [W, T, kv, hd] into the per-sequence float32 online-softmax state
 // (m, l, acc).  Lane i updates sequence seq_ids[i] when live[i] is set,
-// lanes visited in landing order; GQA, every token of a landed page counts.
+// lanes in landing order; GQA, every token of a landed page counts.
 //
-// What bounds it: bytes.  Per live lane a block reads T x hd of k and of v
-// for its kv head and does 4 x g x T x hd float32 operations on them: at the
-// decode path's T = 16, hd = 128, g = 4 that is under 2 operations per byte,
-// far below the card's float32 ridge.  At W = 8 lanes a launch moves half a
-// MiB, so it is bound by launch latency first.
+// What bounds it: latency.  Per live lane a block reads T x hd of k and of
+// v for its kv head and does 4 x g x T x hd float32 operations on them:
+// at the decode path's T = 16, hd = 128, g = 4 under 2 operations a byte,
+// far below the card's float32 ridge.  A 1-node round (W = 8 lanes, all of
+// one sequence) moves half a MiB, an 8-node round (W = 64, 8 sequences) 4
+// MiB; at 3.35 TB/s that is 0.2-1.4 us, so the launch and the round trips
+// to memory set the time.  And most rounds fold nothing: in the decode
+// path a round's lanes belong to few sequences, and a round past every
+// sequence's flushed pages is all FREE.
 //
-// Design.  One block per (sequence b, kv head): the TPU's sequential W grid
-// dimension becomes a loop over the lanes inside the block, in landing
-// order, so the update order is the reference's and no reduction crosses
-// blocks.  The block keeps its g = H / kv query rows and their accumulators
-// in shared memory in float32; for each lane it owns it computes the g x T
-// scores (one warp per score, lanes split hd, shuffle reduction), then one
-// warp per query row takes the row's max, exponentials and sum, then every
-// thread folds p @ v into its (row, hd) accumulators.  Lanes of other
-// sequences are skipped on a block-uniform test, so the barriers stay safe.
+// Design.  One block per (kv head, sequence), 8 warps.  A block
+//   1. issues the copy of its state rows (o: 16-byte cp.async; m, l) and,
+//      beside it, reads seq_ids and live once, each warp all of them (64 a
+//      trip) with a ballot that finds the block's own lanes in landing
+//      order, so no barrier stands before the exit of step 2;
+//   2. with no lane of its own writes the state back and exits: it never
+//      reads q or a page;
+//   3. else gives its lanes to its warps, one lane a warp (lanes past the
+//      8th loop in batches of 8), each warp issuing its page's K and V
+//      slices while the block loads q, and folding the page into its
+//      partial with the shared fold (csrc/decode_fold.cuh);
+//   4. merges the batch's partials into the state in landing order
+//      (merge_partials) and, after the last batch, writes (m, l, o) once.
+// The grid is every (kv head, sequence) pair and each block finds its own
+// lanes, so no host work depends on the round's ids: the launch stays a
+// runtime-input launch that a CUDA graph can replay.  The landing-order
+// merge keeps a sequence's lanes in one block; a block of 4 warps was
+// measured a little faster on all-FREE rounds and much slower on a round
+// of 8 live lanes, so the block has 8.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <algorithm>
+
+#include "decode_fold.cuh"
 #include "packed_args.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
+using namespace decode_fold;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+constexpr int kWarps = 8;
+constexpr int kThreads = 32 * kWarps;
+
+// The lanes of [0, w) that fold into sequence b (seq_ids[i] == b and
+// live[i] != 0); returns how many.  Every warp reads all the ids itself, 64
+// a trip, and ballots its way through them, so no barrier is needed: in
+// landing order, the block's own lane j goes to warp j % nwarps in batch
+// j / nwarps, and the warp's lane 0 writes its lanes into mine[batch].
+__device__ int own_lanes(const int* __restrict__ seq_ids,
+                         const int* __restrict__ live, int w, int b,
+                         int* mine) {
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  int total = 0;
+  for (int base = 0; base < w; base += 64) {
+    int s[2] = {-1, -1}, lv[2] = {0, 0};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int i = base + 32 * h + lane;
+      if (i < w) {
+        s[h] = __ldg(seq_ids + i);
+        lv[h] = __ldg(live + i);
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const unsigned mask = __ballot_sync(0xffffffffu, s[h] == b && lv[h]);
+      const int count = __popc(mask);
+      // this warp's lanes j = warp + k * nwarps in [total, total + count)
+      int k = total <= warp ? 0 : (total - warp + nwarps - 1) / nwarps;
+      for (int j = warp + k * nwarps; j < total + count; j += nwarps, ++k)
+        if (lane == 0)
+          mine[k] = base + 32 * h + __fns(mask, 0, j - total + 1);
+      total += count;
+    }
+  }
+  __syncwarp();
+  return total;
 }
 
-template <typename T>
-__global__ void stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                              const T* __restrict__ v,
-                              const int* __restrict__ seq_ids,
-                              const int* __restrict__ live,
-                              const float* __restrict__ m_in,
-                              const float* __restrict__ l_in,
-                              const float* __restrict__ o_in,
-                              float* __restrict__ m_out,
-                              float* __restrict__ l_out,
-                              float* __restrict__ o_out, int w, int h, int kvh,
-                              int t, int hd, float scale) {
-  const int b = blockIdx.x;
-  const int kh = blockIdx.y;
+// A warp's share of the block's lanes, in batches.
+__host__ __device__ constexpr int batches(int w, int nwarps) {
+  return (w + nwarps - 1) / nwarps;
+}
+
+// Floats of the block's shared memory before the warps' parts: the state
+// record, a second (m, l) for the merges to write, q as float32, then each
+// warp's lane list (ints; nwarps lists of batches(w, nwarps) fit in
+// w + kWarps).
+__host__ __device__ constexpr int head_floats(int g, int hd, int w) {
+  return record_floats(g, hd) + pad4(2 * g) + g * hd + pad4(w + kWarps);
+}
+
+// kG: the query rows of a kv head for the decode path's pages (T 16, hd
+// 128, g = kG: csrc/decode_fold.cuh, fold_page16), or 0 for any shape
+// (fold_page).
+template <typename T, int kG>
+__global__ void __launch_bounds__(kThreads, 1)
+    stream_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const int* __restrict__ seq_ids,
+                  const int* __restrict__ live, const float* __restrict__ m_in,
+                  const float* __restrict__ l_in,
+                  const float* __restrict__ o_in, float* __restrict__ m_out,
+                  float* __restrict__ l_out, float* __restrict__ o_out, int w,
+                  int h, int kvh, int t, int hd, float scale) {
+  const int kh = blockIdx.x;
+  const int b = blockIdx.y;
   const int g = h / kvh;
-  const int h0 = kh * g;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int nwarps = blockDim.x / 32;
+  const int gh = g * hd;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int nwarps = blockDim.x >> 5;
 
-  extern __shared__ float smem[];
-  float* q_s = smem;            // [g, hd]
-  float* acc = q_s + g * hd;    // [g, hd]
-  float* s_s = acc + g * hd;    // [g, t] scores, then probabilities
-  float* m_s = s_s + g * t;     // [g]
-  float* l_s = m_s + g;         // [g]
-  float* a_s = l_s + g;         // [g] rescale of the old state
+  extern __shared__ __align__(16) float smem[];
+  float* state = smem;                              // record [o][m][l]
+  float* ml_alt = state + record_floats(g, hd);     // [m][l]
+  float* q_s = ml_alt + pad4(2 * g);                // [g, hd]
+  int* mine = reinterpret_cast<int*>(q_s + gh) + warp * batches(w, nwarps);
+  float* parts = smem + head_floats(g, hd, w);      // a warp's part each
+  const int stride = warp_floats(g, hd, t, sizeof(T), 1);
+  float* rec = parts + warp * stride;
+  float* s_w = rec + record_floats(g, hd);
+  T* kb = reinterpret_cast<T*>(s_w + pad4(g * t + 2 * g));
+  T* vb = kb + t * hd;
 
-  const long long row0 = static_cast<long long>(b) * h + h0;
-  for (int idx = threadIdx.x; idx < g * hd; idx += blockDim.x) {
-    q_s[idx] = to_f32(q[row0 * hd + idx]);
-    acc[idx] = o_in[row0 * hd + idx];
-  }
+  // 1. the state rows, in flight while the ids are read
+  const long long row0 = static_cast<long long>(b) * h + kh * g;
+  for (int i = threadIdx.x; i < gh / 4; i += blockDim.x)
+    cp_async16(state + 4 * i, o_in + row0 * hd + 4 * i);
   for (int gi = threadIdx.x; gi < g; gi += blockDim.x) {
-    m_s[gi] = m_in[row0 + gi];
-    l_s[gi] = l_in[row0 + gi];
+    cp_async4(state + gh + gi, m_in + row0 + gi);
+    cp_async4(state + gh + g + gi, l_in + row0 + gi);
   }
-  __syncthreads();
+  cp_async_commit();
+  const int n_live = own_lanes(seq_ids, live, w, b, mine);
 
-  const long long tok = static_cast<long long>(kvh) * hd;  // token stride
-  for (int i = 0; i < w; ++i) {
-    if (seq_ids[i] != b || live[i] == 0) continue;  // uniform over the block
-    const T* kp = k + static_cast<long long>(i) * t * tok + kh * hd;
-    const T* vp = v + static_cast<long long>(i) * t * tok + kh * hd;
-
-    for (int p = warp; p < g * t; p += nwarps) {
-      const int gi = p / t;
-      const T* kr = kp + (p % t) * tok;
-      float dot = 0.f;
-      for (int d = lane; d < hd; d += 32) dot += q_s[gi * hd + d] * to_f32(kr[d]);
-      for (int off = 16; off > 0; off >>= 1)
-        dot += __shfl_xor_sync(0xffffffffu, dot, off);
-      if (lane == 0) s_s[p] = dot * scale;
-    }
-    __syncthreads();
-
-    for (int gi = warp; gi < g; gi += nwarps) {
-      float mx = -INFINITY;
-      for (int tt = lane; tt < t; tt += 32) mx = fmaxf(mx, s_s[gi * t + tt]);
-      for (int off = 16; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_prev = m_s[gi];
-      const float m_new = fmaxf(m_prev, mx);
-      float sum = 0.f;
-      for (int tt = lane; tt < t; tt += 32) {
-        const float e = expf(s_s[gi * t + tt] - m_new);
-        s_s[gi * t + tt] = e;
-        sum += e;
+  float* ml = state + gh;                           // the state's (m, l)
+  if (n_live > 0) {
+    // 3. a lane a warp: the page in flight while q loads, then the fold
+    const long long tok = static_cast<long long>(kvh) * hd;
+    const long long page = static_cast<long long>(t) * tok;
+    for (int base = 0; base < n_live; base += nwarps) {
+      const int nb = min(nwarps, n_live - base);
+      if (warp < nb) {
+        const long long off = mine[base / nwarps] * page + kh * hd;
+        issue_page(kb, vb, k + off, v + off, t, hd, tok, lane);
+        cp_async_commit();
       }
-      for (int off = 16; off > 0; off >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      if (lane == 0) {
-        const float alpha = expf(m_prev - m_new);
-        a_s[gi] = alpha;
-        l_s[gi] = l_s[gi] * alpha + sum;
-        m_s[gi] = m_new;
+      if (base == 0) load_rows(q_s, q + row0 * hd, gh);
+      cp_async_wait<0>();
+      __syncthreads();
+      if (warp < nb) {
+        if constexpr (kG > 0)
+          fold_page16<T, kG>(q_s, kb, vb, s_w, rec, scale, true, lane);
+        else
+          fold_page<T>(q_s, kb, vb, s_w, rec, g, t, hd, scale, true, lane);
       }
+      __syncthreads();
+      // 4. the batch's partials into the state, in landing order
+      float* ml_next = ml == ml_alt ? state + gh : ml_alt;
+      merge_partials(state, ml, ml + g, ml_next, ml_next + g, parts, stride,
+                     nb, g, hd);
+      ml = ml_next;
     }
-    __syncthreads();
-
-    for (int idx = threadIdx.x; idx < g * hd; idx += blockDim.x) {
-      const int gi = idx / hd;
-      const int d = idx % hd;
-      float pv = 0.f;
-      for (int tt = 0; tt < t; ++tt)
-        pv += s_s[gi * t + tt] * to_f32(vp[tt * tok + d]);
-      acc[idx] = acc[idx] * a_s[gi] + pv;
-    }
-    __syncthreads();
+  } else {
+    cp_async_wait<0>();   // 2. each thread writes back what it copied
   }
-
-  for (int idx = threadIdx.x; idx < g * hd; idx += blockDim.x)
-    o_out[row0 * hd + idx] = acc[idx];
+  for (int i = threadIdx.x; i < gh / 4; i += blockDim.x)
+    reinterpret_cast<float4*>(o_out + row0 * hd)[i] =
+        reinterpret_cast<const float4*>(state)[i];
   for (int gi = threadIdx.x; gi < g; gi += blockDim.x) {
-    m_out[row0 + gi] = m_s[gi];
-    l_out[row0 + gi] = l_s[gi];
+    m_out[row0 + gi] = ml[gi];
+    l_out[row0 + gi] = ml[g + gi];
   }
+}
+
+template <typename T, int kG>
+int launch_shape(const void* q, const void* k, const void* v,
+                 const int* seq_ids, const int* live, const float* m_in,
+                 const float* l_in, const float* o_in, float* m_out,
+                 float* l_out, float* o_out, int b, int h, int kvh, int w,
+                 int t, int hd, float scale, cudaStream_t stream) {
+  const int g = h / kvh;
+  const size_t head = sizeof(float) * head_floats(g, hd, w);
+  const size_t per_warp = sizeof(float) * warp_floats(g, hd, t, sizeof(T), 1);
+  if (head + per_warp > kSmemLimit)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int warps = static_cast<int>(
+      std::min<size_t>(kWarps, (kSmemLimit - head) / per_warp));
+  const size_t smem = head + warps * per_warp;
+  static size_t allowed = 0;
+  const cudaError_t err = allow_smem(stream_kernel<T, kG>, smem, allowed);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  stream_kernel<T, kG><<<dim3(kvh, b), 32 * warps, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), seq_ids, live, m_in, l_in, o_in, m_out, l_out,
+      o_out, w, h, kvh, t, hd, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
@@ -142,26 +216,20 @@ int launch(const void* q, const void* k, const void* v, const int* seq_ids,
            const float* o_in, float* m_out, float* l_out, float* o_out, int b,
            int h, int kvh, int w, int t, int hd, float scale,
            cudaStream_t stream) {
-  const int g = h / kvh;
-  const size_t smem = sizeof(float) * (2 * g * hd + g * t + 3 * g);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        stream_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  stream_kernel<T><<<dim3(b, kvh), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), seq_ids, live, m_in, l_in, o_in, m_out, l_out,
-      o_out, w, h, kvh, t, hd, scale);
-  return static_cast<int>(cudaGetLastError());
+  if (t == 16 && hd == 128 && h == 4 * kvh)
+    return launch_shape<T, 4>(q, k, v, seq_ids, live, m_in, l_in, o_in,
+                              m_out, l_out, o_out, b, h, kvh, w, t, hd, scale,
+                              stream);
+  return launch_shape<T, 0>(q, k, v, seq_ids, live, m_in, l_in, o_in, m_out,
+                            l_out, o_out, b, h, kvh, w, t, hd, scale, stream);
 }
 
 }  // namespace
 
 // Packed arguments: dtype (0 = float32, 1 = bfloat16; q, k and v share
 // it), q, k, v, seq_ids, live, m_in, l_in, o_in, m_out, l_out, o_out, b, h,
-// kvh, w, t, hd, scale, stream.
+// kvh, w, t, hd, scale, stream.  q, k, v and o 16-byte aligned, hd x the
+// element size a multiple of 16 bytes (the wrapper checks both).
 extern "C" int repro_stream_decode_accumulate(const char* packed) {
   const PackedArgs a{packed};
   const int dtype = a.i32(0);
@@ -181,6 +249,8 @@ extern "C" int repro_stream_decode_accumulate(const char* packed) {
   const float scale = a.f32(18);
   void* stream = a.ptr<void>(19);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kvh < 1 || h % kvh != 0 || h == 0 || t < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (dtype == 0)
     return launch<float>(q, k, v, seq_ids, live, m_in, l_in, o_in, m_out,
                          l_out, o_out, b, h, kvh, w, t, hd, scale, s);

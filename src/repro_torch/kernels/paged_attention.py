@@ -7,8 +7,12 @@ sequence's one new token attends over the tokens of its fully flushed
 pages, below ``(length // T) * T``.  A ``-1`` entry reads slot 0 and a slot
 past the pool reads the last slot, as the reference's kernel and oracle
 do.  A CPU tensor runs the plain version; a CUDA tensor launches
-``csrc/paged_attention.cu`` (or raises).  The wrapper counts its launches
-in ``paged_attention.launches``.
+``csrc/paged_attention.cu`` (or raises; the kernel takes 16-byte aligned
+operands and a head of a multiple of 16 bytes): a kernel that folds each
+split of ``SPLIT_PAGES`` pages into a float32 partial in one scratch
+buffer, then one that merges a sequence's partials in split order.  The
+wrapper counts a call, its two kernels, as one launch in
+``paged_attention.launches``.
 """
 from __future__ import annotations
 
@@ -17,11 +21,18 @@ import torch
 from repro_torch.core.kvbridge import decode_attention_ref
 from repro_torch.kernels import _build
 
-# dtype, 6 pointers, 7 sizes, scale, stream (csrc/paged_attention.cu),
+# dtype, 7 pointers, 8 sizes, scale, stream (csrc/paged_attention.cu),
 # packed
-_FIELDS = "14qdq"
+_FIELDS = "16qdq"
+SPLIT_PAGES = 8           # pages one block of the split kernel folds
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _paged_c = None           # the kernel's C function, bound at its first launch
+
+
+def record_floats(g: int, hd: int) -> int:
+    """Floats of one split's partial (acc [g, hd], m [g], l [g]), 16-byte
+    aligned (``csrc/decode_fold.cuh``, record_floats)."""
+    return g * hd + -(-2 * g // 4) * 4
 
 
 def paged_attention_plain(q, k_pool, v_pool, page_table, lengths, *,
@@ -71,9 +82,15 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError(f"{what}: q and the pools must share float32 or "
                          f"bfloat16, got {q.dtype}, {k_pool.dtype}, "
                          f"{v_pool.dtype}")
+    if hd * q.element_size() % 16:
+        raise ValueError(f"{what}: head_dim x the element size must be a "
+                         f"multiple of 16 bytes, got head_dim {hd}")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
+    parts = torch.empty(b * kv * -(-max_pages // SPLIT_PAGES)
+                        * record_floats(h // kv, hd), dtype=torch.float32,
+                        device=q.device)
     global _paged_c
     if _paged_c is None:
         _paged_c = _build.bind("paged_attention", "repro_paged_attention",
@@ -81,8 +98,8 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
     _build.check(_paged_c(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_pool.data_ptr(),
         v_pool.data_ptr(), page_table.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), b, h, kv, slots, t, hd, max_pages, hd ** -0.5,
-        _build.stream_of(q)), what)
+        parts.data_ptr(), out.data_ptr(), b, h, kv, slots, t, hd, max_pages,
+        SPLIT_PAGES, hd ** -0.5, _build.stream_of(q)), what)
     paged_attention.launches += 1
     return out
 

@@ -94,3 +94,73 @@ def test_stream_accumulate_rejects_bad_shapes():
         torch.from_numpy(a) for a in make_round(6, 2, 4, 2, 8, 4, 4, True))
     with pytest.raises(ValueError, match="shapes"):
         tba.stream_decode_accumulate(q, k, v[:2], seq, live, m, l, o)
+
+
+def make_nnode_round(seed, fresh, nodes=8, budget=8, b=8, h=32, kv=8,
+                     hd=128, t=16):
+    """One round of the 8-node decode path at granite-3-8b's head layout:
+    node j pulls ``budget`` pages of sequence j, node-major, so W = 64 lanes
+    of 8 sequences; a few lanes are dead (FREE), one of them with its
+    sequence id kept, which ``live`` alone must silence."""
+    q, k, v, _, _, m, l, o = make_round(seed, b, h, kv, hd, nodes * budget, t,
+                                        fresh)
+    seq = np.repeat(np.arange(nodes, dtype=np.int32), budget) % b
+    live = np.ones(nodes * budget, np.int32)
+    live[[3, 17, 18, 40, 63]] = 0
+    seq[[3, 17, 40, 63]] = -1              # lane 18 keeps its sequence
+    return q, k, v, seq, live, m, l, o
+
+
+@pytest.mark.parametrize("fresh", [True, False])
+def test_stream_accumulate_matches_reference_at_the_8_node_round(fresh):
+    args = make_nnode_round(7, fresh)
+    for got, want in zip(run_port(args), run_jax(args)):
+        np.testing.assert_allclose(got, want, **TOL)
+
+
+def fold_by_lane_partials(q, k, v, seq, live, m, l, o):
+    """The CUDA kernel's decomposition in plain PyTorch: each live lane's
+    page partial (its row max, sum of exponentials and p @ v, as the shared
+    fold computes them) merged into its sequence's state in landing order,
+    m = max(m, m_i) and each side rescaled by exp(its m - m)
+    (``csrc/decode_fold.cuh``, fold_page and merge_partials)."""
+    q, k, v = (torch.from_numpy(x).float() for x in (q, k, v))
+    m, l, o = (torch.from_numpy(x.copy()) for x in (m, l, o))
+    b, h, hd = q.shape
+    kv = k.shape[2]
+    qg = q.reshape(b, kv, h // kv, hd)
+    for i in range(k.shape[0]):
+        if not live[i] or not 0 <= seq[i] < b:
+            continue
+        s = torch.einsum("kgd,tkd->kgt", qg[seq[i]], k[i]) * hd ** -0.5
+        m_i = s.amax(-1)                                     # [kv, g]
+        p = torch.exp(s - m_i[..., None])
+        l_i = p.sum(-1)
+        acc_i = torch.einsum("kgt,tkd->kgd", p, v[i])
+        m_i, l_i, acc_i = m_i.reshape(h), l_i.reshape(h), acc_i.reshape(h, hd)
+        mn = torch.maximum(m[seq[i]], m_i)
+        a, bb = torch.exp(m[seq[i]] - mn), torch.exp(m_i - mn)
+        l[seq[i]] = l[seq[i]] * a + l_i * bb
+        o[seq[i]] = o[seq[i]] * a[:, None] + acc_i * bb[:, None]
+        m[seq[i]] = mn
+    return m.numpy(), l.numpy(), o.numpy()
+
+
+@pytest.mark.parametrize("fresh", [True, False])
+@pytest.mark.parametrize("round_", ["1-node", "8-node"])
+def test_lane_partials_merged_in_landing_order_match_reference(round_, fresh):
+    """The kernel's reordering (a partial per lane, merged in landing order)
+    against the JAX kernel at granite-3-8b's head layout, scores spanning
+    about +-30 and, fresh, the -1e30 initial state: within 1e-5."""
+    if round_ == "1-node":
+        args = list(make_round(8, 8, 32, 8, 128, 8, 16, fresh))
+        args[3][:] = 5                               # one sequence's 8 pages
+        args[4][:] = 1
+    else:
+        args = list(make_nnode_round(9, fresh))
+    args[0] = args[0] * 6.0                          # q: scores to +-30
+    s = np.einsum("bkgd,wtkd->bkgwt", args[0].reshape(8, 8, 4, 128),
+                  args[1]) * 128 ** -0.5
+    assert 25 < np.abs(s).max() < 35
+    for got, want in zip(fold_by_lane_partials(*args), run_jax(args)):
+        np.testing.assert_allclose(got, want, **TOL)

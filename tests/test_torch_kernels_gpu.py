@@ -506,3 +506,148 @@ def test_new_wrappers_reject_device_mix_and_grad(cuda):
     with pytest.raises(ValueError, match="one device"):
         pa.paged_attention(q[:, 0], pool, pool, table,
                            torch.zeros((1,), dtype=torch.int32), max_pages=2)
+
+
+# The decode-attention fold's rounds: B, then each lane's sequence (-1 a
+# FREE lane) and the lanes whose live flag is 0 while they keep their id.
+FOLD_ROUNDS = {
+    "all FREE, W 8": (8, [-1] * 8, []),
+    "one sequence, W 8": (8, [5] * 8, []),
+    "8-node round, W 64": (8, [i // 8 for i in range(64)], [3, 17, 40]),
+    "8 interleaved, W 64": (8, [i % 8 for i in range(64)], [9, 10]),
+    "one sequence scattered, W 16": (
+        4, [2, -1, 0, 2, 2, 3, -1, 2, 1, 2, 0, 2, -1, 3, 2, 2], [4]),
+    "W 256, 28 lanes a sequence past 8 warps": (
+        8, [(i * 5) % 9 - 1 for i in range(256)], [7, 100]),
+}
+# (H, kv, hd, T): g = 1, 4 and 8, hd 64 and 128, T 8 and 16
+FOLD_HEADS = [(8, 8, 128, 16), (32, 8, 128, 16), (16, 2, 64, 8)]
+
+
+def _fold_round(gen, dev, dtype, b, seq, dead, h, kv, hd, t):
+    w = len(seq)
+    seq = torch.tensor(seq, dtype=torch.int32, device=dev)
+    live = (seq >= 0).to(torch.int32)
+    live[dead] = 0
+    q = torch.randn((b, h, hd), generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn((w, t, kv, hd), generator=gen, device=dev).to(dtype)
+            for _ in range(2))
+    m = torch.randn((b, h), generator=gen, device=dev)
+    m[0] = -1e30                     # a sequence that has folded nothing yet
+    l = torch.rand((b, h), generator=gen, device=dev) + 0.5
+    l[0] = 0
+    o = torch.randn((b, h, hd), generator=gen, device=dev)
+    o[0] = 0
+    return q, k, v, seq, live, m, l, o
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,kv,hd,t", FOLD_HEADS)
+@pytest.mark.parametrize("round_", list(FOLD_ROUNDS))
+def test_stream_kernel_round_shapes_match_plain(cuda, round_, h, kv, hd, t,
+                                                dtype):
+    """The fold at the rounds its block design makes hard, within 1e-5 of
+    the plain version, and bit-identical from call to call; a sequence
+    with no live lane keeps its state bit for bit."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(21)
+    b, seq, dead = FOLD_ROUNDS[round_]
+    args = _fold_round(gen, cuda, dtype, b, seq, dead, h, kv, hd, t)
+    got = ba.stream_decode_accumulate(*args)
+    again = ba.stream_decode_accumulate(*args)
+    want = ba.stream_decode_accumulate_plain(*args)
+    for g_, a_, w_ in zip(got, again, want):
+        torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-5)
+        assert torch.equal(g_, a_)
+    seq, live = args[3], args[4]
+    idle = [i for i in range(b)
+            if not bool(((seq == i) & (live != 0)).any())]
+    for g_, before in zip(got, args[5:]):
+        assert torch.equal(g_[idle], before[idle])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mp", [20, 76])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("h,kv,hd,t", FOLD_HEADS)
+def test_paged_kernel_split_edges_match_plain(cuda, h, kv, hd, t, dtype, mp):
+    """Paged attention where its splits are hard: lengths of 0, under a
+    page, exactly max_pages pages, past them, on a split's edge and inside
+    the last (ragged) split; max_pages 20 and 76 are not multiples of the
+    split, and 76 gives more splits than one merge takes; -1 entries and
+    slots past the pool.  Within the reference suite's limits of the plain
+    version, bit-identical from call to call."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(22)
+    b = 8
+    assert mp % pa.SPLIT_PAGES
+    slots = b * mp + 3
+    kp, vp = (torch.randn((slots, t, kv, hd), generator=gen,
+                          device=cuda).to(dtype) for _ in range(2))
+    table = torch.randperm(slots, generator=gen, device=cuda)[:b * mp].view(
+        b, mp).to(torch.int32)
+    table[2, 0] = -1
+    table[2, 19] = -1
+    table[4, 8] = slots + 7
+    sp = pa.SPLIT_PAGES
+    lengths = torch.tensor([0, t - 1, mp * t, mp * t + 3 * t, sp * t,
+                            (sp + 1) * t + 2, 2 * sp * t + 1, t],
+                           dtype=torch.int32, device=cuda)
+    q = torch.randn((b, h, hd), generator=gen, device=cuda).to(dtype)
+    got = pa.paged_attention(q, kp, vp, table, lengths, max_pages=mp)
+    again = pa.paged_attention(q, kp, vp, table, lengths, max_pages=mp)
+    want = pa.paged_attention_plain(q, kp, vp, table, lengths, max_pages=mp)
+    tol = 3e-5 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=tol)
+    assert torch.equal(got, again)
+    assert not got[0].any() and not got[1].any()
+
+
+@pytest.mark.gpu
+def test_decode_kernels_replay_in_a_cuda_graph(cuda):
+    """One fold round and one paged call recorded in a CUDA graph, then
+    replayed on new values written into the same inputs (new ids, lengths
+    and table among them): what the plain versions give on the new values."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(23)
+    fold = _fold_round(gen, cuda, torch.bfloat16, 8, [i // 8 for i in
+                                                      range(64)], [5],
+                       32, 8, 128, 16)
+    b, mp, t = 8, 64, 16
+    slots = b * mp + 8
+    kp, vp = (torch.randn((slots, t, 8, 128), generator=gen,
+                          device=cuda).bfloat16() for _ in range(2))
+    q = torch.randn((b, 32, 128), generator=gen, device=cuda).bfloat16()
+    table = torch.randperm(slots, generator=gen, device=cuda)[:b * mp].view(
+        b, mp).to(torch.int32)
+    lengths = torch.tensor([1024, 0, 17, 500, 1023, 16, 777, 64],
+                           dtype=torch.int32, device=cuda)
+    paged = (q, kp, vp, table, lengths)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):          # warm-up: build, load, bind
+        ba.stream_decode_accumulate(*fold)
+        pa.paged_attention(*paged, max_pages=mp)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        state = ba.stream_decode_accumulate(*fold)
+        out = pa.paged_attention(*paged, max_pages=mp)
+    new_fold = _fold_round(gen, cuda, torch.bfloat16, 8,
+                           [i % 8 for i in range(64)], [1, 2], 32, 8, 128, 16)
+    for x, y in zip(fold, new_fold):
+        x.copy_(y)
+    q.copy_(torch.randn(q.shape, generator=gen, device=cuda))
+    table.copy_(torch.randperm(slots, generator=gen, device=cuda)[:b * mp]
+                .view(b, mp))
+    lengths.copy_(torch.tensor([3, 1024, 600, 0, 16, 33, 64, 900],
+                               device=cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    for g_, w_ in zip(state, ba.stream_decode_accumulate_plain(*fold)):
+        torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-5)
+    want = pa.paged_attention_plain(*paged, max_pages=mp)
+    torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=3e-2)
+    assert not out[3].any() and out[1].any()

@@ -141,3 +141,103 @@ def test_paged_never_falls_back_off_the_cpu():
                             torch.zeros((2, 3), dtype=torch.int32), lengths,
                             max_pages=3)
     assert tpa.paged_attention.launches == 0
+
+
+# The ragged lengths of the smoke run's paged check (B 8, T 16, 64 pages):
+# a full sequence, an empty one, under a page, exactly one page, and lengths
+# that end inside a page.
+SMOKE_LENGTHS = [1024, 0, 17, 500, 1023, 16, 777, 64]
+
+
+def make_smoke_paged(dtype=None, q_scale=1.0, seed=11):
+    """The smoke run's paged shapes at granite-3-8b's head layout (32/8 heads
+    of 128), with one -1 entry and one slot past the pool."""
+    b, mp, t, h, kv, hd = 8, 64, 16, 32, 8, 128
+    q, k_pool, v_pool, table, lengths = make_paged(b, mp, t, h, kv, hd,
+                                                   SMOKE_LENGTHS, seed)
+    table[2, 0] = -1
+    table[6, 40] = k_pool.shape[0] + 5
+    q = q * q_scale
+    if dtype is not None:                  # the values a bf16 pool holds
+        q, k_pool, v_pool = (torch.from_numpy(x).bfloat16().float().numpy()
+                             for x in (q, k_pool, v_pool))
+    return (q, k_pool, v_pool, table, lengths), mp
+
+
+@pytest.mark.parametrize("dtype,tol", [(None, 3e-5), (jnp.bfloat16, 3e-2)])
+def test_paged_matches_reference_at_the_smoke_lengths(dtype, tol):
+    args, mp = make_smoke_paged(dtype)
+    got, kernel, oracle = run_both(args, mp, dtype=dtype)
+    np.testing.assert_allclose(got, kernel, atol=tol)
+    np.testing.assert_allclose(got, oracle, atol=tol)
+    assert not got[1].any()
+
+
+def _merge(a, b):
+    """Two partial states (m, l, acc) merged as kvbridge._merge does."""
+    m = torch.maximum(a[0], b[0])
+    x, y = torch.exp(a[0] - m), torch.exp(b[0] - m)
+    return m, a[1] * x + b[1] * y, a[2] * x[:, None] + b[2] * y[:, None]
+
+
+def paged_by_split_partials(q, k_pool, v_pool, table, lengths, max_pages,
+                            split=tpa.SPLIT_PAGES, warps=4):
+    """The CUDA kernels' decomposition in plain PyTorch: a sequence's
+    flushed pages cut into splits of ``split`` pages; in a split, warp w
+    folds pages w, w + warps, ... (each page's partial merged into the
+    warp's), the warps' partials merge in warp order, the splits' partials
+    in split order into the empty state (-1e30, 0, 0), and the output is
+    acc / max(l, 1e-30) (``csrc/paged_attention.cu``)."""
+    q, kp, vp = (torch.from_numpy(x).float() for x in (q, k_pool, v_pool))
+    b, h, hd = q.shape
+    slots, t, kv, _ = kp.shape
+    g = h // kv
+    out = torch.zeros((b, h, hd))
+    for bi in range(b):
+        pages = min(int(lengths[bi]) // t, max_pages)
+        qg = q[bi].reshape(kv, g, hd)
+
+        def page(p):
+            slot = min(max(int(table[bi, p]), 0), slots - 1)
+            s = torch.einsum("kgd,tkd->kgt", qg, kp[slot]) * hd ** -0.5
+            m = s.amax(-1)
+            e = torch.exp(s - m[..., None])
+            acc = torch.einsum("kgt,tkd->kgd", e, vp[slot])
+            return m.reshape(h), e.sum(-1).reshape(h), acc.reshape(h, hd)
+
+        state = (torch.full((h,), -1e30), torch.zeros(h), torch.zeros(h, hd))
+        for p0 in range(0, pages, split):
+            n = min(split, pages - p0)
+            parts = []
+            for w in range(min(warps, n)):
+                part = page(p0 + w)
+                for p in range(p0 + w + warps, p0 + n, warps):
+                    part = _merge(part, page(p))
+                parts.append(part)
+            block = parts[0]
+            for part in parts[1:]:
+                block = _merge(block, part)
+            state = _merge(state, block)
+        out[bi] = state[2] / state[1].clamp(min=1e-30)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("dtype,tol", [(None, 3e-5), (jnp.bfloat16, 3e-2)])
+def test_split_partials_merged_in_split_order_match_reference(dtype, tol):
+    """The kernels' reordering (per-warp and per-split partials, merged in
+    warp and split order) against the JAX kernel at the smoke's lengths and
+    granite-3-8b's head layout, with scores spanning about +-30."""
+    args, mp = make_smoke_paged(dtype, q_scale=6.0)
+    q, k_pool = args[:2]
+    s = np.einsum("bkgd,ntkd->bkgnt", q.reshape(8, 8, 4, 128),
+                  k_pool[:64]) * 128 ** -0.5
+    assert 25 < np.abs(s).max() < 35
+    got = paged_by_split_partials(*args, mp)
+    if dtype is not None:
+        got = got.bfloat16().float()
+    jf = [jnp.asarray(a, dtype or jnp.float32) for a in args[:3]]
+    want = np.asarray(jops.paged_attention(*jf, jnp.asarray(args[3]),
+                                           jnp.asarray(args[4]),
+                                           max_pages=mp), np.float32)
+    np.testing.assert_allclose(got.numpy(), want, atol=tol)
+    assert not got[1].any()
