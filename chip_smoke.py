@@ -14,13 +14,14 @@ prints no result):
               round of the 8-node path), bit-exact, and the streaming
               accumulate within float32 rounding; flash attention at the
               sequence forward's shapes (B 8, S 1024, 32/8 heads of 128,
-              causal: the bf16 tensor-core kernel, and the float32
-              CUDA-core kernel on the same inputs in float32) and at the
-              mask and head-size cases, a row that sees no key among them
-              (float32 2e-5, bf16 2e-2; each call must launch the variant
-              its dtype names); paged decode attention at the serving
-              decode shapes (3e-5 / 3e-2; its two kernels' device time
-              apart); the fold also at the decode paths' round kinds (all
+              causal: the bf16 wgmma kernel on bf16 inputs, and the float32
+              three-term TF32 kernel on float32 inputs, its bound three
+              TF32 products beside one float32 product on the CUDA cores)
+              and at the mask and head-size cases, a row that sees no key
+              among them (float32 2e-5, bf16 2e-2; each call must launch
+              the variant its dtype names); paged decode attention at the
+              serving decode shapes (3e-5 / 3e-2; its two kernels' device
+              time apart); the fold also at the decode paths' round kinds (all
               FREE and one sequence's 8 lanes at W = 8; 3 live lanes in
               each of 8 sequences at W = 64), both decode kernels bit-
               identical from call to call; the STREAM passes at the paper's
@@ -61,7 +62,7 @@ prints no result):
               logits over 200 random tokens held to teacher-forced
               ``local`` decode within 5e-2 of the largest logit, and in
               float32 at the reduced size within 1e-4 (there every flash
-              launch is the float32 CUDA-core kernel);
+              launch is the float32 three-term TF32 kernel);
 6. stream   — triad over 65,536 float32 elements pulled as 32 pages of
               2048 through the 4-node bridge (a pool blocked over 4 memory
               nodes, budget 8) is bit-identical to triad on the local
@@ -122,6 +123,7 @@ from repro_torch.serve import step as serve_step  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12         # H100 SXM bf16 tensor cores, dense
+TF32_FLOP_PER_S = 495e12         # H100 SXM TF32 tensor cores, dense
 STREAM_TOL = dict(rtol=1e-5, atol=1e-5)   # float32: only sum order differs
 # bf16 full width: local and bridge_pull round their attention outputs to
 # bf16 from float32 values that differ in the last float32 bits, and a
@@ -145,7 +147,7 @@ PATHS = {"1-node": 1, f"{NODES}-node": NODES}
 # ``paths``: the decode paths of phase 3 that launch the kernel; ``headline``:
 # the measurement of phase 2 whose numbers stand at the top of its row;
 # ``variant``: where one wrapper launches two kernels (flash attention: the
-# bf16 tensor-core kernel and the float32 CUDA-core kernel), the kernel
+# bf16 wgmma kernel and the float32 three-term TF32 kernel), the kernel
 # whose launches the row counts.
 KERNELS = {
     "gather_pages": dict(
@@ -184,7 +186,7 @@ KERNELS = {
         replaces="src/repro/kernels/flash_attention.py:109", paths=(),
         headline="forward"),
     "flash_attention_f32": dict(
-        fns=(fa.flash_attention,), variant=fa.CUDA_CORES,
+        fns=(fa.flash_attention,), variant=fa.TF32X3,
         source="src/repro_torch/kernels/csrc/flash_attention.cu",
         replaces="src/repro/kernels/flash_attention.py:109", paths=(),
         headline="forward f32"),
@@ -756,20 +758,56 @@ FLASH_CASES = [
     (1, 64, 64, 4, 2, 64, True, 16, -40),
 ]
 # The two kernels behind the one wrapper: (report row, measurement, kernel,
-# peak rate of the products' input type).  float32 products run on the CUDA
-# cores (67 TFLOP/s), bf16 on the tensor cores.
+# peak rate of the tensor cores' input type, tensor-core products a float32
+# product takes).  bf16 runs one product on bf16 tiles; float32 three on
+# TF32 tiles (hi·hi + hi·lo + lo·hi), its bound beside one float32 product
+# on the CUDA cores (67 TFLOP/s), the bound of the kernel it replaced.
 FLASH_ROWS = {torch.bfloat16: ("flash_attention", "forward", fa.WGMMA,
-                               BF16_FLOP_PER_S),
+                               BF16_FLOP_PER_S, 1),
               torch.float32: ("flash_attention_f32", "forward f32",
-                              fa.CUDA_CORES, F32_FLOP_PER_S)}
+                              fa.TF32X3, TF32_FLOP_PER_S, 3)}
+
+
+def check_flash_f32_large_scores(q, k, v) -> dict:
+    """The float32 kernel with q scaled by 4 (scores of standard deviation
+    4, causal) against the plain version, and both against attention in
+    float64 computed one batch at a time: the kernel within 2e-5 of each.
+    There the plain version's own float32 rounding is of the same order."""
+    q4 = 4 * q
+    got = fa.flash_attention(q4, k, v).double()
+    plain = attention_ref(q4, k, v).double()
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    keep = visible_mask(s, s, True, 0, 0).to(q.device)
+    err = dict(kernel_vs_plain=0.0, kernel_vs_f64=0.0, plain_vs_f64=0.0,
+               max_abs_score=0.0)
+    for i in range(b):
+        qg = q4[i].double().view(s, kv, h // kv, hd)
+        sc = torch.einsum("qkgd,skd->kgqs", qg, k[i].double()) * hd ** -0.5
+        err["max_abs_score"] = max(err["max_abs_score"],
+                                   float(sc.masked_fill(~keep, 0).abs().max()))
+        p = torch.softmax(sc.masked_fill(~keep, float("-inf")), dim=-1)
+        want = torch.einsum("kgqs,skd->qkgd", p, v[i].double()).reshape(
+            s, h, hd)
+        for name, x, y in (("kernel_vs_plain", got[i], plain[i]),
+                           ("kernel_vs_f64", got[i], want),
+                           ("plain_vs_f64", plain[i], want)):
+            err[name] = max(err[name], float((x - y).abs().max()))
+    if not (err["kernel_vs_plain"] <= FLASH_TOL["float32"]
+            and err["kernel_vs_f64"] <= FLASH_TOL["float32"]):
+        raise AssertionError(f"flash_attention float32 at q x 4: {err}")
+    print(f"kernel flash_attention_f32 [q x 4, B 8 S 1024 causal float32]: "
+          f"{err}")
+    return err
 
 
 def check_flash(report: dict, gen, dev="cuda") -> None:
     """Flash attention against its plain version: both kernels timed at the
     sequence forward's shapes (B 8, S 1024, 32/8 heads of 128, causal; the
-    bf16 tensor-core kernel on bf16 inputs, the float32 CUDA-core kernel on
-    the same inputs in float32), then the mask and head-size cases.  Every
-    call must launch the kernel its dtype names, once."""
+    bf16 wgmma kernel on bf16 inputs, the float32 three-term TF32 kernel on
+    inputs drawn in float32, whose full mantissas one TF32 product would
+    round), then the mask and head-size cases.  Every call must launch the
+    kernel its dtype names, once."""
     def inputs(b, sq, sk, h, kv, hd, dtype):
         return tuple(torch.randn(shape, generator=gen, device=dev).to(dtype)
                      for shape in ((b, sq, h, hd), (b, sk, kv, hd),
@@ -795,12 +833,12 @@ def check_flash(report: dict, gen, dev="cuda") -> None:
 
     b, s, h, kv, hd = 8, 1024, 32, 8, 128
     pairs = int(visible_mask(s, s, True, 0, 0).sum())
-    q16, k16, v16 = inputs(b, s, s, h, kv, hd, torch.bfloat16)
     for dtype, name in ((torch.bfloat16, "bfloat16"),
                         (torch.float32, "float32")):
-        row, path, kernel, rate = FLASH_ROWS[dtype]
-        q, k, v = (x.to(dtype) for x in (q16, k16, v16))
+        row, path, kernel, rate, products = FLASH_ROWS[dtype]
+        q, k, v = inputs(b, s, s, h, kv, hd, dtype)
         err, _ = error(q, k, v, name, causal=True)
+        flops = 4 * b * h * hd * pairs
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         iters = 200 if dtype == torch.bfloat16 else 50
         record(report, row, path, err=err,
@@ -812,12 +850,21 @@ def check_flash(report: dict, gen, dev="cuda") -> None:
                    iters=iters),
                nbytes=2 * q.numel() * q.element_size()
                + 2 * k.numel() * k.element_size(),
-               flops=4 * b * h * hd * pairs, flop_rate=rate,
+               flops=products * flops, flop_rate=rate,
                note=f", B 8 S 1024 causal {name}",
                dev_us=device_us(lambda: fa.flash_attention(q, k, v), kernel,
                                 calls=10))
+        if dtype == torch.float32:
+            entry = report[row]["by_path"][path]
+            cores_ms = flops / F32_FLOP_PER_S * 1e3
+            entry["bound_ms_cuda_cores"] = cores_ms
+            dev_ms = entry["device_us"] / 1e3
+            print(f"kernel {row} [{path}]: bound {entry['bound_ms']:.6f} ms "
+                  f"as three TF32 products ({entry['bound_ms'] / dev_ms:.1%}"
+                  f" of the device time), {cores_ms:.6f} ms as one float32 "
+                  f"product on the CUDA cores ({cores_ms / dev_ms:.1%})")
+            entry["large_scores"] = check_flash_f32_large_scores(q, k, v)
         del q, k, v, qt, kt, vt
-    del q16, k16, v16
     worst, zero_rows = {}, 0
     for case in FLASH_CASES:
         b, sq, sk, h, kv, hd, causal, window, q_offset = case
@@ -1072,7 +1119,7 @@ def profile_step(label: str, run_step) -> dict:
     ours = {k: [(e.count, e.self_device_time_total / 1e3 / e.count)
                 for e in kernels if k in e.key]
             for k in ("gather_rows", "pull_commit_rows", "push_commit_rows",
-                      "scatter_rows", "stream_kernel", fa.CUDA_CORES,
+                      "scatter_rows", "stream_kernel", fa.TF32X3,
                       fa.WGMMA)}
     # the fold's launches one by one: a few live rounds among many all-FREE
     # ones, told apart by the median and the longest beside the mean
@@ -1410,8 +1457,8 @@ def forward_phase(report: dict, cfg, params, dev="cuda") -> dict:
 def forward_reduced_f32(report: dict, dev="cuda") -> dict:
     """Reduced granite-3-8b in float32: the forward against teacher-forced
     local decode at 1e-4 per position; the planted mask fault must break
-    that limit.  Each of the two forwards launches one float32 CUDA-core
-    flash kernel per layer, and nothing else of the port's kernels."""
+    that limit.  Each of the two forwards launches one float32 three-term
+    TF32 flash kernel per layer, and nothing else of the port's kernels."""
     cfg = dataclasses.replace(configs.get_reduced("granite-3-8b"),
                               dtype="float32")
     gen = torch.Generator(device=dev)

@@ -6,8 +6,9 @@
 // with GQA (head h reads kv head h / (H / kv)), masks on absolute positions
 // (q_pos = row + q_offset; k_pos < Sk; causal: k_pos <= q_pos; window > 0:
 // q_pos - k_pos < window), acc / max(l, 1e-30) at the end, bf16 out.  The
-// float32 path keeps the CUDA-core kernel of flash_attention.cu: the TPU
-// kernel's float32 products, held at 2e-5, are beyond TF32 or bf16 tiles.
+// float32 path is flash_attention.cu: one TF32 product is too coarse for
+// the TPU kernel's float32 limit (2e-5), three (each operand split into
+// two TF32 halves) hold it.
 //
 // Numerics.  S = Q K^T on bf16 tiles with float32 accumulation (bf16 x bf16
 // products are exact in float32, so only the order of summation differs

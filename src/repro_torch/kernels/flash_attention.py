@@ -12,8 +12,10 @@ dtype alone (:func:`variant`), or raises:
 
 - bfloat16: ``csrc/flash_attention_wgmma.cu`` (``flash_fwd_wgmma``), wgmma
   on bf16 tiles staged by TMA, p rounded to bf16 before P·V;
-- float32: ``csrc/flash_attention.cu`` (``flash_fwd_kernel``), float32
-  products on the CUDA cores, as the reference's float32 limit needs.
+- float32: ``csrc/flash_attention.cu`` (``flash_fwd_tf32x3``), mma.sync on
+  TF32 tiles, each operand split into two TF32 halves and every product
+  taken as hi·lo + lo·hi + hi·hi in float32, which holds the reference's
+  float32 limit (2e-5) where one TF32 product would not.
 
 The wrapper counts every launch in ``flash_attention.launches`` and each
 kernel's in ``flash_attention.launches_by_kernel``.
@@ -28,19 +30,19 @@ from repro_torch.kernels import _build
 from repro_torch.models.flash import attention_ref
 
 WGMMA = "flash_fwd_wgmma"          # the kernels' symbols, as profilers name them
-CUDA_CORES = "flash_fwd_kernel"
-_SOURCE = {WGMMA: "flash_attention_wgmma", CUDA_CORES: "flash_attention"}
-# kernel -> its C function and packed arguments: 4 pointers, the sizes and
-# masks, scale, stream (csrc/flash_attention*.cu)
+TF32X3 = "flash_fwd_tf32x3"
+_SOURCE = {WGMMA: "flash_attention_wgmma", TF32X3: "flash_attention"}
+# kernel -> its C function and packed arguments: 4 pointers, the sizes,
+# hd_pad and key tile, masks, scale, stream (csrc/flash_attention*.cu)
 _ENTRY = {WGMMA: ("repro_flash_attention_wgmma", "15qdq"),
-          CUDA_CORES: ("repro_flash_attention_f32", "13qdq")}
+          TF32X3: ("repro_flash_attention_tf32x3", "15qdq")}
 _bound = {}               # kernel -> its C function, bound at its first launch
 
 
 @dataclasses.dataclass(frozen=True)
 class Variant:
     """Which kernel takes a call, and its tiles."""
-    kernel: str      # WGMMA or CUDA_CORES
+    kernel: str      # WGMMA or TF32X3
     hd_pad: int      # head dim as the kernel's shared-memory tiles hold it
     key_tile: int    # keys a tile
 
@@ -48,20 +50,22 @@ class Variant:
 def variant(dtype: torch.dtype, hd: int) -> Variant:
     """The kernel for q, k, v of ``dtype`` with head dim ``hd``.
 
-    bfloat16 takes the tensor-core kernel, hd padded with zeros to a
+    bfloat16 takes the wgmma kernel, hd padded with zeros to a
     multiple of 64 (a 128-byte swizzled row), 128 keys a tile up to hd 128
     and 64 beyond (the output alone then takes 96 or 128 registers a
-    thread); float32 takes the CUDA-core kernel (32 keys a tile, hd as it
-    is).  Nothing else decides, and neither gives way to the other.
+    thread); float32 takes the three-term TF32 kernel, hd padded with zeros
+    to a multiple of 64, 32 keys a tile up to hd 192 and 16 beyond (its
+    shared memory holds each K and V tile three times).  Nothing else
+    decides, and neither gives way to the other.
     """
     if hd % 8 or not 8 <= hd <= 256:
         raise ValueError(f"flash_attention: head_dim {hd} must be a multiple "
                          f"of 8 up to 256")
+    hd_pad = -(-hd // 64) * 64
     if dtype == torch.bfloat16:
-        hd_pad = -(-hd // 64) * 64
         return Variant(WGMMA, hd_pad, 128 if hd_pad <= 128 else 64)
     if dtype == torch.float32:
-        return Variant(CUDA_CORES, hd, 32)
+        return Variant(TF32X3, hd_pad, 32 if hd_pad <= 192 else 16)
     raise ValueError(f"flash_attention: q, k and v must share float32 or "
                      f"bfloat16, got {dtype}")
 
@@ -114,15 +118,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             sk, h, kv, hd)
     masks = (int(bool(causal)), int(window), int(q_offset), hd ** -0.5,
              _build.stream_of(q))
-    if plan.kernel == WGMMA:
-        err = fn(*args, plan.hd_pad, plan.key_tile, *masks)
-    else:
-        err = fn(*args, *masks)
-    _build.check(err, what)
+    _build.check(fn(*args, plan.hd_pad, plan.key_tile, *masks), what)
     flash_attention.launches += 1
     flash_attention.launches_by_kernel[plan.kernel] += 1
     return out
 
 
 flash_attention.launches = 0
-flash_attention.launches_by_kernel = {WGMMA: 0, CUDA_CORES: 0}
+flash_attention.launches_by_kernel = {WGMMA: 0, TF32X3: 0}

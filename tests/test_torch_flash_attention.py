@@ -9,7 +9,10 @@ for the shape sweep and 3e-5 for the mask cases (the online softmax sums in
 another order than the dense softmax), 2e-2 in bfloat16 (one rounding of
 the output).  The bf16 tensor-core kernel adds one rounding, of p to bf16
 before P·V; its arithmetic, written densely here, is held to the JAX kernel
-at the same 2e-2.
+at the same 2e-2.  The float32 kernel takes each product as three TF32
+products (hi·hi + hi·lo + lo·hi of each operand split in two TF32 halves);
+its arithmetic, transcribed tile by tile here, is held to the JAX kernel at
+2e-5, and the same transcription with one TF32 product must miss 2e-5.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -143,7 +146,7 @@ def test_flash_never_falls_back_off_the_cpu():
         tfa.flash_attention(torch.zeros((1, 8, 4, 16)), kv, kv)
     assert tfa.flash_attention.launches == 0
     assert tfa.flash_attention.launches_by_kernel == {tfa.WGMMA: 0,
-                                                      tfa.CUDA_CORES: 0}
+                                                      tfa.TF32X3: 0}
 
 
 def attention_p_bf16(q, k, v, *, causal=True, window=0, q_offset=0):
@@ -191,14 +194,16 @@ CONFIG_HEAD_DIMS = {jconfigs.get_config(a).head_dim
 
 @pytest.mark.parametrize("hd", sorted(CONFIG_HEAD_DIMS | set(WGMMA_TILES)))
 def test_flash_variant_follows_the_dtype(hd):
-    """The dtype alone picks the kernel: bf16 the tensor-core kernel (hd
-    padded to a multiple of 64, 128 keys a tile up to hd 128, else 64),
-    float32 the CUDA-core kernel.  Every head size of the repo's configs
-    is in the table."""
+    """The dtype alone picks the kernel: bf16 the wgmma kernel (hd padded
+    to a multiple of 64, 128 keys a tile up to hd 128, else 64), float32
+    the three-term TF32 kernel (hd padded likewise, 32 keys a tile up to hd
+    192, else 16).  Every head size of the repo's configs is in the
+    table."""
+    hd_pad = WGMMA_TILES[hd][0]
     assert tfa.variant(torch.bfloat16, hd) == tfa.Variant(tfa.WGMMA,
                                                           *WGMMA_TILES[hd])
-    assert tfa.variant(torch.float32, hd) == tfa.Variant(tfa.CUDA_CORES, hd,
-                                                         32)
+    assert tfa.variant(torch.float32, hd) == tfa.Variant(
+        tfa.TF32X3, hd_pad, 32 if hd_pad <= 192 else 16)
 
 
 def test_flash_variant_refuses_other_inputs():
@@ -208,3 +213,95 @@ def test_flash_variant_refuses_other_inputs():
         tfa.variant(torch.bfloat16, 12)
     with pytest.raises(ValueError, match="multiple of 8"):
         tfa.variant(torch.bfloat16, 264)
+
+
+def tf32(x):
+    """float32 rounded to TF32 on the bit pattern as the kernel rounds it
+    (``cvt.rna.tf32.f32``'s rule): to nearest, ties away from zero, 10
+    mantissa bits kept (the low 13 of 23 cleared)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split(x):
+    """x = hi + lo: hi rounded to TF32; lo = x - hi (exact in float32) as
+    the mma reads it, its low 13 bits dropped."""
+    hi = tf32(x)
+    return hi, ((x - hi).view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def product(a, b, terms):
+    """a @ b as the kernel's mma.sync takes it: three TF32 products, the
+    small terms summed apart and added last, or (``terms`` 1) one."""
+    (ah, al), (bh, bl) = split(a), split(b)
+    if terms == 1:
+        return ah @ bh
+    return ah @ bh + (ah @ bl + al @ bh)
+
+
+def attention_tf32x3(q, k, v, *, causal=True, window=0, q_offset=0,
+                     terms=3, key_tile=32):
+    """The float32 kernel's arithmetic (test-only): key tiles of 32 in
+    order; S = Q Kᵀ as ``product`` takes it, summed over chunks of 32
+    columns of hd in float32, scaled to log2 units; mask, running max m,
+    p = 2^(s - m) with masked p 0; O += P V as ``product`` takes it, one
+    sum a tile added to the rescaled O; l and O in float32, and
+    acc / max(l, 1e-30) at the end."""
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, sq, kv, h // kv, hd).permute(0, 2, 3, 1, 4)
+    kt = k.permute(0, 2, 3, 1)[:, :, None]          # [b, kv, 1, hd, sk]
+    vt = v.permute(0, 2, 1, 3)[:, :, None]          # [b, kv, 1, sk, hd]
+    mask = tflash._mask(torch.arange(sq) + q_offset, torch.arange(sk),
+                        causal, window)
+    scale2 = torch.tensor(hd ** -0.5, dtype=torch.float32) * torch.tensor(
+        1.4426950408889634, dtype=torch.float32)
+    m = torch.full(qg.shape[:-1] + (1,), tflash.NEG_INF)
+    l = torch.zeros_like(m)
+    acc = torch.zeros_like(qg)
+    for k0 in range(0, sk, key_tile):
+        keys = slice(k0, k0 + key_tile)
+        s = sum(product(qg[..., c:c + 32], kt[..., c:c + 32, keys], terms)
+                for c in range(0, hd, 32))
+        s = torch.where(mask[:, keys], s * scale2, tflash.NEG_INF)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.where(mask[:, keys], torch.exp2(s - m_new), 0.0)
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        acc = acc * alpha + product(p, vt[..., keys, :], terms)
+        m = m_new
+    o = acc / l.clamp(min=1e-30)
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, h, hd)
+
+
+# (seed, B, Sq, Sk, H, kv, hd, q scale, mask): the float32 cases above, then
+# granite-3-8b's heads with q scaled up so that scores reach |s| 10-20.
+TF32_CASES = [(0, *shape, 1.0, {}) for shape in SHAPES] + [
+    (1, 1, 256, 256, 4, 2, 64, 1.0, dict(window=64)),
+    (2, 1, 128, 384, 4, 4, 64, 1.0, dict(q_offset=256)),
+    (3, 1, 100, 200, 4, 4, 64, 1.0, dict(causal=False)),
+    (4, 1, 40, 40, 4, 2, 64, 1.0, dict(q_offset=-3)),
+    (7, 1, 256, 256, 32, 8, 128, 4.0, {}),
+]
+
+
+@pytest.mark.parametrize("case", TF32_CASES)
+def test_flash_tf32x3_matches_reference(case):
+    """Three TF32 products hold the float32 limit (2e-5) against the JAX
+    kernel (interpret mode) and the port's plain version; one TF32 product
+    does not, so the limit sees the split's absence."""
+    seed, b, sq, sk, h, kv, hd, q_scale, kw = case
+    arrays = make(seed, b, sq, sk, h, kv, hd)
+    arrays = (arrays[0] * np.float32(q_scale), *arrays[1:])
+    kw = dict(dict(causal=True), **kw)
+    plain, jax_kernel, _ = run_both(arrays, "float32", **kw)
+    q, k, v = (torch.from_numpy(a) for a in arrays)
+    got = attention_tf32x3(q, k, v, **kw).numpy()
+    one = attention_tf32x3(q, k, v, terms=1, **kw).numpy()
+    np.testing.assert_allclose(got, jax_kernel, rtol=0, atol=TOL["float32"])
+    np.testing.assert_allclose(got, plain, rtol=0, atol=TOL["float32"])
+    assert np.abs(one - jax_kernel).max() > TOL["float32"]
+    if kw.get("q_offset", 0) < 0:
+        assert not got[:, :-kw["q_offset"]].any()
+    if q_scale > 1:
+        scores = torch.einsum("bqhd,bkhd->bhqk", q[:, :, :kv], k) * hd ** -0.5
+        assert 10 <= float(scores.abs().max()) <= 20

@@ -377,15 +377,15 @@ FLASH = [
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kv, hd, causal,
                                     window, q_offset):
-    """bf16 launches the tensor-core kernel and float32 the CUDA-core one,
-    once each call; rows that see no key are exact zeros."""
+    """bf16 launches the wgmma kernel and float32 the three-term TF32
+    one, once each call; rows that see no key are exact zeros."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(5)
     q = torch.randn((b, sq, h, hd), generator=gen, device=cuda).to(dtype)
     k = torch.randn((b, sk, kv, hd), generator=gen, device=cuda).to(dtype)
     v = torch.randn((b, sk, kv, hd), generator=gen, device=cuda).to(dtype)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
-    kernel = fa.WGMMA if dtype == torch.bfloat16 else fa.CUDA_CORES
+    kernel = fa.WGMMA if dtype == torch.bfloat16 else fa.TF32X3
     before = fa.flash_attention.launches
     by_kernel = dict(fa.flash_attention.launches_by_kernel)
     got = fa.flash_attention(q, k, v, **kw)
@@ -402,6 +402,42 @@ def test_flash_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kv, hd, causal,
     if window > 0:
         seen &= q_pos - k_pos < window
     assert not got[:, ~seen.any(1)].any()
+
+
+def _attention_f64(q, k, v):
+    """Causal attention in float64 on the card, one batch at a time."""
+    b, s, h, hd = q.shape
+    kv = k.shape[2]
+    keep = torch.ones(s, s, dtype=torch.bool, device=q.device).tril()
+    out = torch.empty(q.shape, dtype=torch.float64, device=q.device)
+    for i in range(b):
+        qg = q[i].double().view(s, kv, h // kv, hd)
+        sc = torch.einsum("qkgd,skd->kgqs", qg, k[i].double()) * hd ** -0.5
+        p = torch.softmax(sc.masked_fill(~keep, float("-inf")), dim=-1)
+        out[i] = torch.einsum("kgqs,skd->qkgd", p, v[i].double()).reshape(
+            s, h, hd)
+    return out
+
+
+@pytest.mark.gpu
+def test_flash_float32_holds_at_large_scores(cuda):
+    """The sequence forward's shape in float32 with q scaled by 4 (scores
+    of standard deviation 4): the three-term TF32 kernel stays within 2e-5
+    of the plain version, and within 2e-5 of attention in float64 (the
+    plain version's own float32 rounding is of the same order there)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(9)
+    b, s, h, kv, hd = 8, 1024, 32, 8, 128
+    q = 4 * torch.randn((b, s, h, hd), generator=gen, device=cuda)
+    k = torch.randn((b, s, kv, hd), generator=gen, device=cuda)
+    v = torch.randn((b, s, kv, hd), generator=gen, device=cuda)
+    before = fa.flash_attention.launches_by_kernel[fa.TF32X3]
+    got = fa.flash_attention(q, k, v)
+    assert fa.flash_attention.launches_by_kernel[fa.TF32X3] == before + 1
+    torch.testing.assert_close(got, attention_ref(q, k, v), rtol=0,
+                               atol=2e-5)
+    torch.testing.assert_close(got.double(), _attention_f64(q, k, v), rtol=0,
+                               atol=2e-5)
 
 
 @pytest.mark.gpu
