@@ -52,10 +52,21 @@ prints no result):
               launches one by one (mean, median, longest).  The kernel
               API's paged decode attention then reads layer 0 of the 8-node
               pool through the memport table and is held to dense attention
-              over local's cache;
+              over local's cache.  ``bridge_push`` (attention at the memory
+              nodes; only its flushes launch kernels) runs the same 48
+              steps on 1 and 8 nodes, held to local's logits.  Then
+              ``bridge_pull`` with the in-band counters on (tenant lane
+              b % 2): (a) 20 steps on 1 and 8 nodes, logits bit-identical
+              to the counters-off run's first 20 steps; (b) 40 steps on 8
+              nodes over a scattered memport table and a two-board fabric
+              with its hierarchical program, so every slot and tier carries
+              traffic; in both every layer's counters equal the host oracle
+              (``core/ref.expected_transfer_telemetry``) bit for bit, and
+              the launches equal the counters-off path's;
 4. reduced  — reduced granite-3-8b in float32, a 16-token prompt then
-              greedy: ``local`` and ``bridge_pull`` (1 and 8 nodes) emit
-              identical tokens and logits within 1e-4;
+              greedy: ``local``, ``bridge_pull`` (1 and 8 nodes, counters
+              off and on), ``bridge_push`` (1 and 8 nodes) and ``ring``
+              emit identical tokens and logits within 1e-4;
 5. forward  — the same full-width weights: the sequence forward timed at
               B 8 x S 1024 (median of 5 after a warm-up), exactly one flash
               launch per layer, every one the bf16 tensor-core kernel; its
@@ -69,9 +80,10 @@ prints no result):
               arrays (the check of the paper's Figure 3);
 7. programs — the software-defined check: pull and push on one 8-node pool
               under each of the route-program constructors back to back,
-              bit-exact against the plain path on a CPU copy, with no nvcc
-              run; then one 8-node pull and push under
-              ``torch.cuda.set_sync_debug_mode("error")``;
+              bit-exact against the plain path on a CPU copy, their
+              counters (a tenant lane) equal to the host oracle, with no
+              nvcc run; then one 8-node pull and push, counters off and on,
+              under ``torch.cuda.set_sync_debug_mode("error")``;
 8. report   — one JSON line listing every ported kernel with its launches on
               the paths that ran it, the card's name and power limit, then
               the result line.
@@ -79,7 +91,9 @@ prints no result):
 Phases 3 and 4 also run ``bridge_pull`` with planted faults and fail unless
 their own limit rejects them: the last live lane of every pulled round
 dropped (a bridge that loses a page), and, on 8 nodes, a route program
-pruned of ring distance 4, which carries traffic.  Phase 5 runs the forward
+pruned of ring distance 4, which carries traffic; ``bridge_push`` runs with
+the last live lane of every flush dropped (a lost write).  Phase 5 runs the
+forward
 with the flash kernel's mask shifted by one position (every query also sees
 the next token) and fails unless its limits reject that.  Random weights
 repeat a token once decoding turns greedy; the prompt is what makes the KV
@@ -96,17 +110,20 @@ import statistics
 import subprocess
 import sys
 import time
+from dataclasses import fields
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
 from repro_torch.config import (BridgeConfig, RunConfig,  # noqa: E402
                                 ShapeConfig)
 from repro_torch.core import bridge, kvbridge, steering  # noqa: E402
+from repro_torch.core import ref as tref  # noqa: E402
 from repro_torch.core.memport import FREE, MemPortTable  # noqa: E402
 from repro_torch.core.topology import Topology  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -119,6 +136,9 @@ from repro_torch.kernels import stream as st  # noqa: E402
 from repro_torch.models import attention, transformer  # noqa: E402
 from repro_torch.models.flash import attention_ref  # noqa: E402
 from repro_torch.serve import step as serve_step  # noqa: E402
+from repro_torch.telemetry import TelemetryAggregator  # noqa: E402
+from repro_torch.telemetry import counters as tcounters  # noqa: E402
+from repro_torch.telemetry.aggregate import to_host  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
@@ -1028,20 +1048,26 @@ def check_stream_passes(report: dict, gen, dev="cuda"):
 # ---------------------------------------------------------------------------
 
 def decode(cfg, params, kv, batch, max_len, page_tokens, steps, feed, *,
-           num_nodes=1, program=None, dtype=torch.bfloat16, dev="cuda"):
+           num_nodes=1, program=None, table=None, dtype=torch.bfloat16,
+           dev="cuda", **telemetry):
     """Decode ``steps`` steps: fed the input tokens ``feed`` [n, B] for the
-    first n steps, greedy after; ``program`` replaces the route program in
-    the shared state.  Returns (inputs, logits, per-step ms, a callable
-    that runs one more step, the decode state after ``steps`` steps)."""
+    first n steps, greedy after; ``program`` and ``table`` replace the
+    route program and the memport table in the shared state;
+    ``telemetry`` (``collect_telemetry``, ``tenant_of_seq``,
+    ``max_tenants``, ``topology``) goes to ``make_cache_ops``.  Returns
+    (inputs, logits, per-step ms, a callable that runs one more step, the
+    decode state after ``steps`` steps)."""
     run = RunConfig(model=cfg, shape=ShapeConfig("smoke", max_len, batch,
                                                  "decode"), kv_placement=kv,
                     bridge=BridgeConfig(channels=1))
     ops = serve_step.make_cache_ops(run, max_len, page_tokens,
                                     num_nodes=num_nodes, dtype=dtype,
-                                    device=dev)
+                                    device=dev, **telemetry)
     state = serve_step.init_serve_state(run, batch, ops)
     if program is not None:
         state["kv_shared"]["program"] = program
+    if table is not None:
+        state["kv_shared"]["table"] = table
     tokens = None
     inputs, logits_all, times = [], [], []
     for i in range(steps):
@@ -1140,19 +1166,46 @@ def profile_step(label: str, run_step) -> dict:
     return out
 
 
-def expected_launches(num_nodes, batch, max_pages, budget, layers) -> dict:
-    """Kernel launches of one decode step of bridge_pull, from its shapes."""
+def expected_launches(num_nodes, batch, max_pages, budget, layers,
+                      mode="pull") -> dict:
+    """Kernel launches of one decode step of bridge_pull or bridge_push,
+    from its shapes: a layer flushes k and v through one push round each
+    (``push_commit``, or ``scatter_pages`` on one node); the pull also
+    gathers (and on N nodes commits) k and v a round and folds each round;
+    the push attends at the memory with no kernel."""
     per_node = -(-batch // num_nodes)
     rounds = -(-per_node * max_pages // budget)
+    flush_rounds = -(-per_node // budget)
     want = dict.fromkeys(KERNELS, 0)
     if num_nodes == 1:
-        want.update(gather_pages=2 * rounds * layers, scatter_pages=2 * layers,
-                    stream_decode_accumulate=rounds * layers)
+        want["scatter_pages"] = 2 * layers
     else:
+        want["push_commit"] = 2 * flush_rounds * layers
+    if mode == "pull":
         want.update(gather_pages=2 * rounds * layers,
-                    pull_commit=2 * rounds * layers, push_commit=2 * layers,
                     stream_decode_accumulate=rounds * layers)
+        if num_nodes > 1:
+            want["pull_commit"] = 2 * rounds * layers
     return want
+
+
+def hold_launches(report: dict, label: str, counts: dict, want: dict,
+                  steps: int) -> dict:
+    """Every kernel's launches over ``steps`` decode steps, counted from 0
+    just before the path ran, must be exactly ``want`` a step (so a kernel
+    of the path that never launched fails); they go into the report under
+    ``label``.  Returns the launches a step."""
+    per_step = {}
+    for name, n in counts.items():
+        per_step[name] = n / steps
+        if per_step[name] != want[name]:
+            raise AssertionError(f"{label}: {name} launched {per_step[name]} "
+                                 f"times a step, expected {want[name]}")
+        report[name]["launches"] += n
+        if n:
+            entry = report[name]["by_path"].setdefault(label, {})
+            entry.update(launches=n, launches_per_step=per_step[name])
+    return per_step
 
 
 FULL = dict(batch=8, max_len=1024, page_tokens=16, steps=48, prompt=40,
@@ -1185,6 +1238,7 @@ def full_width(report: dict, cfg, params, gen, dev="cuda") -> dict:
     shape = (batch, max_len, page_tokens)
     inputs, local_logits, local_ms, local_next, local_state = decode(
         cfg, params, "local", *shape, steps, prompt, dev=dev)
+    off_logits = {}
     out = dict(local_ms_per_step=statistics.median(local_ms[1:]),
                local_first_step_ms=local_ms[0])
     profile_step("local", local_next)
@@ -1249,6 +1303,9 @@ def full_width(report: dict, cfg, params, gen, dev="cuda") -> dict:
             out["paged_api"] = paged_over_pool(report, cfg, local_state,
                                                pull_state, gen, dev)
         del pull_state
+        # what the telemetry runs are held to: the same steps, counters off
+        off_logits[path] = pull_logits[:TELEM["steps"]].clone()
+        del pull_logits
     out.update(pages_flushed_per_sequence=steps // page_tokens,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
     print("full:", json.dumps({k: v for k, v in out.items()
@@ -1258,7 +1315,293 @@ def full_width(report: dict, cfg, params, gen, dev="cuda") -> dict:
                                             if k != "profile"}))
     del local_state
     torch.cuda.empty_cache()
+    return out, dict(inputs=inputs, local_logits=local_logits,
+                     off_logits=off_logits)
+
+
+@contextlib.contextmanager
+def planted_push_fault():
+    """Drop the last live lane of every push round (each flush of a step is
+    one round here): a bridge that loses a written page.  The checks of the
+    push paths must reject what this produces."""
+    real = bridge.push_pages
+
+    def lossy(pool, dest, payload, table, **kw):
+        flat = dest.reshape(-1)
+        lane = torch.arange(flat.numel(), device=flat.device)
+        last = torch.where(flat >= 0, lane, -1).max()
+        dest = torch.where(lane == last, FREE, flat).view(dest.shape)
+        return real(pool, dest, payload, table, **kw)
+
+    bridge.push_pages = lossy
+    try:
+        yield
+    finally:
+        bridge.push_pages = real
+
+
+def push_paths(report: dict, cfg, params, ctx: dict, dev="cuda") -> dict:
+    """bridge_push (attention at the memory nodes) on 1 and 8 nodes at full
+    width, fed the tokens of phase 3: logits held to local's, exact
+    launches (the flushes only), a profiled step, and a planted lost write
+    that the limit must reject."""
+    shape = (FULL["batch"], FULL["max_len"], FULL["page_tokens"])
+    steps, fault_steps = FULL["steps"], FULL["fault_steps"]
+    inputs, local_logits = ctx["inputs"], ctx["local_logits"]
+    out = {}
+    for path, n in PATHS.items():
+        reset_launches()
+        _, logits, ms, nxt, state = decode(cfg, params, "bridge_push",
+                                           *shape, steps, inputs,
+                                           num_nodes=n, dev=dev)
+        counts = read_launches()
+        per_step = hold_launches(
+            report, f"{path} push", counts,
+            expected_launches(n, FULL["batch"], shape[1] // shape[2], 8,
+                              cfg.num_layers, mode="push"), steps)
+        if not torch.isfinite(logits).all():
+            raise AssertionError(f"non-finite bridge_push logits ({path})")
+        worst = worst_rel_diff(logits, local_logits)
+        if worst > FULL_LOGIT_REL_TOL:
+            raise AssertionError(f"{path} bridge_push logits differ from "
+                                 f"local by {worst:.3g} of the largest logit")
+        with planted_push_fault():
+            _, fault_logits, _, _, _ = decode(
+                cfg, params, "bridge_push", *shape, fault_steps, inputs,
+                num_nodes=n, dev=dev)
+        fault = worst_rel_diff(fault_logits, local_logits[:fault_steps])
+        if not fault > FULL_LOGIT_REL_TOL:
+            raise AssertionError(f"{path} planted lost write moved the "
+                                 f"bridge_push logits by only {fault:.3g}")
+        out[path] = dict(
+            bridge_push_ms_per_step=statistics.median(ms[1:]),
+            bridge_push_first_step_ms=ms[0], worst_logit_rel_diff=worst,
+            planted_lost_write_rel_diff=fault,
+            greedy_agreement=float((logits.argmax(-1)
+                                    == local_logits.argmax(-1))
+                                   .float().mean()),
+            launches_per_step={k: v for k, v in per_step.items() if v})
+        out[path]["profile"] = profile_step(f"bridge_push {path}", nxt)
+        print(f"push {path}:", json.dumps({k: v for k, v in out[path].items()
+                                            if k != "profile"}))
+        del nxt, state, logits
     return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 3, telemetry: bridge_pull with the in-band counters on
+# ---------------------------------------------------------------------------
+
+# (a) 20 steps: the first flushed page of each sequence is pulled in steps
+# 17-20; (b) 40 steps: pages 0 and 1 of every sequence are pulled.
+TELEM = dict(steps=20, fabric_steps=40, tenants=2)
+
+
+def by_node_np(x: np.ndarray, n: int, fill) -> np.ndarray:
+    """[B, ...] -> [N, ceil(B / N), ...], padding rows ``fill``
+    (``kvbridge._by_node`` on the host)."""
+    per = -(-x.shape[0] // n)
+    pad = n * per - x.shape[0]
+    if pad:
+        x = np.concatenate([x, np.full((pad,) + x.shape[1:], fill, x.dtype)])
+    return x.reshape((n, per) + x.shape[1:])
+
+
+def oracle_counters(steps, n, table, program, topology, tenant,
+                    max_tenants):
+    """The host oracle (``core/ref.expected_transfer_telemetry``) summed
+    over every bridge transfer of one layer in ``steps`` decode steps,
+    every sequence at length s in step s: the k and v flush of the step's
+    append, then the k and v pull of each round of its request list.  The
+    lists are built here on the host, as kvbridge builds them; every layer
+    sees the same lists."""
+    batch, page_t, budget = FULL["batch"], FULL["page_tokens"], 8
+    max_pages = FULL["max_len"] // page_t
+    table_c = MemPortTable(table.home.cpu(), table.slot.cpu())
+    program_c = None if program is None else program.to("cpu")
+    ids = (np.arange(batch)[:, None] * max_pages
+           + np.arange(max_pages)[None, :]).astype(np.int32)
+    page_tenant = by_node_np(np.repeat(tenant[:, None], max_pages, 1), n,
+                             0).reshape(n, -1)
+    seq_tenant = by_node_np(tenant, n, 0)
+    total = None
+    for s in range(steps):
+        full = s % page_t == page_t - 1 and s // page_t < max_pages
+        dest = np.full(batch, FREE, np.int32)
+        if full:
+            dest = (np.arange(batch) * max_pages + s // page_t).astype(
+                np.int32)
+        lists = [(by_node_np(dest, n, FREE), seq_tenant)]
+        want = np.where(np.arange(max_pages)[None, :] < (s + 1) // page_t,
+                        ids, FREE).astype(np.int32)
+        want = by_node_np(want, n, FREE).reshape(n, -1)
+        lists += [(want[:, i:i + budget], page_tenant[:, i:i + budget])
+                  for i in range(0, want.shape[1], budget)]
+        for req, ten in lists:
+            t = tref.expected_transfer_telemetry(
+                req, table_c, program_c, num_nodes=n, budget=budget,
+                topology=topology, tenant_ids=ten, max_tenants=max_tenants)
+            t = tcounters.add(t, t)                   # the k and the v pool
+            total = t if total is None else tcounters.add(total, t)
+    return total
+
+
+def hold_counters(label: str, state: dict, want) -> None:
+    """Every layer's cumulative counters equal the oracle, bit for bit."""
+    want_h = {f.name: getattr(want, f.name).numpy() for f in fields(want)}
+    for i, st in enumerate(state["layers"]):
+        got = to_host(st["telem"])
+        for name, w in want_h.items():
+            if not np.array_equal(getattr(got, name), w):
+                raise AssertionError(
+                    f"{label}: layer {i} {name} {getattr(got, name).tolist()}"
+                    f" != oracle {w.tolist()}")
+
+
+def scattered_table(dev) -> MemPortTable:
+    """Page p of sequence j homed at node (3j + p + 1) mod 8, slot p: for
+    each p a bijection over j, so every node holds 64 pages, and pages 0
+    and 1 of the 8 sequences lie at every ring distance 0-7 from their
+    sequence's node."""
+    batch, max_pages = FULL["batch"], FULL["max_len"] // FULL["page_tokens"]
+    j = torch.arange(batch, device=dev)[:, None]
+    p = torch.arange(max_pages, device=dev)[None, :]
+    home = torch.remainder(3 * j + p + 1, NODES).to(torch.int32)
+    slot = torch.broadcast_to(p, home.shape).to(torch.int32)
+    return MemPortTable(home=home.reshape(-1).contiguous(),
+                        slot=slot.reshape(-1).contiguous())
+
+
+def telemetry_runs(report: dict, cfg, params, ctx: dict, full_out: dict,
+                   dev="cuda") -> dict:
+    """bridge_pull with the counters on, tenant lane b % 2: (a) on 1 and 8
+    nodes with the default table and program, logits bit-identical to the
+    same steps of phase 3's counters-off run, every layer's counters equal
+    to the host oracle, the launches of the counters-off path; (b) on 8
+    nodes with a scattered table and a two-board fabric whose hierarchical
+    program wires every (rank, slot) pair, so that every counter field
+    carries traffic."""
+    shape = (FULL["batch"], FULL["max_len"], FULL["page_tokens"])
+    max_pages = shape[1] // shape[2]
+    tenant = np.arange(FULL["batch"]) % TELEM["tenants"]
+    kw = dict(collect_telemetry=True, tenant_of_seq=tenant,
+              max_tenants=TELEM["tenants"])
+    inputs, local_logits = ctx["inputs"], ctx["local_logits"]
+    out = {}
+    runs = [(path, n, TELEM["steps"], {}) for path, n in PATHS.items()]
+    topo = Topology.boards(2, 4)
+    runs.append((f"{NODES}-node fabric", NODES, TELEM["fabric_steps"],
+                 dict(program=steering.hierarchical_program(topo, device=dev),
+                      table=scattered_table(dev), topology=topo)))
+    for label, n, steps, fabric in runs:
+        reset_launches()
+        _, logits, ms, nxt, state = decode(
+            cfg, params, "bridge_pull", *shape, steps, inputs, num_nodes=n,
+            dev=dev, **kw, **fabric)
+        counts = read_launches()
+        hold_launches(report, f"{label} telemetry", counts,
+                      expected_launches(n, shape[0], max_pages, 8,
+                                        cfg.num_layers), steps)
+        res = dict(steps=steps, ms_per_step=statistics.median(ms[1:]),
+                   first_step_ms=ms[0])
+        if label in PATHS:
+            off = ctx["off_logits"][label]
+            res["logits_bit_identical_to_counters_off"] = bool(
+                torch.equal(logits, off))
+            if not res["logits_bit_identical_to_counters_off"]:
+                # Is the counters-off path itself repeatable on the card?
+                _, again, _, _, _ = decode(cfg, params, "bridge_pull",
+                                           *shape, steps, inputs,
+                                           num_nodes=n, dev=dev)
+                if torch.equal(again, off):
+                    raise AssertionError(f"{label}: the counters changed "
+                                         f"the logits")
+                res["counters_off_repeatable"] = False
+            res["counters_off_ms_per_step"] = full_out[label][
+                "bridge_pull_ms_per_step"]
+        res["worst_logit_rel_diff"] = worst_rel_diff(logits,
+                                                     local_logits[:steps])
+        if res["worst_logit_rel_diff"] > FULL_LOGIT_REL_TOL:
+            raise AssertionError(f"{label} telemetry logits differ from "
+                                 f"local by {res['worst_logit_rel_diff']:.3g}")
+        program = state["kv_shared"].get("program")
+        t0 = time.perf_counter()
+        want = oracle_counters(steps, n, state["kv_shared"]["table"], program,
+                               fabric.get("topology"), tenant,
+                               TELEM["tenants"])
+        hold_counters(label, state, want)
+        res["oracle_s"] = time.perf_counter() - t0
+        total = to_host(serve_step.collect_state_telemetry(state))
+        served = total.loopback_served + total.slot_served.sum(-1)
+        if not (np.array_equal(total.tenant_served.sum(-1), served)
+                and np.array_equal(total.tenant_spilled.sum(-1),
+                                   total.spilled)
+                and np.array_equal(total.tenant_pruned.sum(-1),
+                                   total.pruned)):
+            raise AssertionError(f"{label}: tenant sums do not reconcile")
+        res.update(served_pages=int(served.sum()),
+                   tenant_served=total.tenant_served.sum(0).tolist(),
+                   slot_served=total.slot_served.sum(0).tolist(),
+                   tier_hops=total.tier_hops.sum(0).tolist(),
+                   epoch_cw=total.epoch_cw.sum(0).tolist(),
+                   epoch_ccw=total.epoch_ccw.sum(0).tolist(),
+                   spilled=int(total.spilled.sum()),
+                   pruned=int(total.pruned.sum()))
+        if fabric and not ((total.slot_served.sum(0) > 0).all()
+                           and (total.tier_hops.sum(0) > 0).all()
+                           and res["spilled"] == 0 and res["pruned"] == 0):
+            raise AssertionError(f"{label}: a counter carries no traffic or "
+                                 f"a page was dropped: {res}")
+        if fabric:
+            agg = TelemetryAggregator(n, max_tenants=TELEM["tenants"])
+            agg.update(serve_step.collect_state_telemetry(state))
+            print(agg.describe())
+        # Every layer runs the same ops: the launches the counters add to a
+        # step are the layers times those they add to one layer's cache
+        # op, profiled with the counters on and off on the same state.
+        layer = {}
+        for on in (True, False):
+            ops = serve_step.make_cache_ops(
+                RunConfig(model=cfg, shape=ShapeConfig(
+                    "smoke", shape[1], shape[0], "decode"),
+                    kv_placement="bridge_pull",
+                    bridge=BridgeConfig(channels=1)),
+                shape[1], shape[2], num_nodes=n, device=dev,
+                topology=fabric.get("topology"),
+                **(kw if on else {}))
+            layer[on] = cache_op_launches(cfg, ops, state, on, dev)
+        res.update(layer_launches_counters_on=layer[True],
+                   layer_launches_counters_off=layer[False],
+                   launches_added_per_step=(layer[True] - layer[False])
+                   * cfg.num_layers)
+        out[label] = res
+        print(f"telemetry {label}:", json.dumps(res))
+        del nxt, state, logits
+    return out
+
+
+def cache_op_launches(cfg, ops, state, with_counters: bool, dev) -> int:
+    """Kernel launches on the card, from the profiler, of one call of
+    layer 0's cache op (append one token, attend) on ``state``."""
+    from torch.profiler import ProfilerActivity, profile
+    b = state["lengths"].shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    q, k_new, v_new = (torch.randn((b, h, cfg.head_dim), generator=gen,
+                                   device=dev).bfloat16()
+                       for h in (cfg.num_heads, cfg.num_kv_heads,
+                                 cfg.num_kv_heads))
+    st = state["layers"][0]
+    if not with_counters:
+        st = {"paged": st["paged"]}
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        ops.append_and_attend(cfg, st, state["kv_shared"], state["lengths"],
+                              q, k_new, v_new)
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
 
 
 def paged_over_pool(report, cfg, local_state, pull_state, gen, dev) -> dict:
@@ -1348,6 +1691,24 @@ def reduced_f32(dev="cuda") -> None:
               f"steps x {batch} sequences (16 prompt + {steps - 16} greedy;"
               f" sample {local_in[16:, 0].tolist()}), max logit difference "
               f"{err:.3g}; planted fault {fault:.3g}")
+    tel = dict(collect_telemetry=True, tenant_of_seq=np.arange(batch) % 2,
+               max_tenants=2)
+    for label, kv, n, extra in (
+            ("ring", "ring", 1, {}),
+            ("1-node bridge_push", "bridge_push", 1, {}),
+            (f"{NODES}-node bridge_push", "bridge_push", NODES, {}),
+            ("1-node bridge_pull telemetry", "bridge_pull", 1, tel),
+            (f"{NODES}-node bridge_pull telemetry", "bridge_pull", NODES,
+             tel)):
+        got_in, got_logits, _, _, _ = decode(*args, kv, *shape, prompt,
+                                             num_nodes=n, **kw, **extra)
+        if not torch.equal(local_in, got_in):
+            raise AssertionError(f"reduced f32: local and {label} tokens "
+                                 f"differ")
+        torch.testing.assert_close(got_logits, local_logits,
+                                   **REDUCED_LOGIT_TOL)
+        print(f"reduced {label}: float32 tokens == local's, max logit "
+              f"difference {float((got_logits - local_logits).abs().max()):.3g}")
 
 
 # ---------------------------------------------------------------------------
@@ -1551,10 +1912,21 @@ def program_variants(dev) -> dict:
     }
 
 
+def hold_transfer_counters(label: str, got, want) -> None:
+    """One transfer's counters on the card equal the host oracle's."""
+    got = to_host(got)
+    for f in fields(want):
+        if not np.array_equal(getattr(got, f.name),
+                              getattr(want, f.name).numpy()):
+            raise AssertionError(f"{label}: {f.name} differs from the oracle")
+
+
 def programs_swap(dev="cuda") -> dict:
     """Pull and push under every program back to back on one card pool,
-    bit-exact against the plain path on a CPU copy, building nothing;
-    then one round trip under the sync debugger."""
+    bit-exact against the plain path on a CPU copy, with the counters on
+    (a tenant lane, the hierarchical program's fabric) and held to the host
+    oracle, building nothing; then one round trip under the sync debugger,
+    counters off and on."""
     gen = torch.Generator(device="cpu")
     gen.manual_seed(5)
     ppn, page = 16, (16, 8, 128)
@@ -1570,27 +1942,46 @@ def programs_swap(dev="cuda") -> dict:
     table_g = MemPortTable(table_c.home.to(dev), table_c.slot.to(dev))
     want_g, dest_g, pay_g, ab_g = (x.to(dev) for x in (want_c, dest_c, pay_c,
                                                         ab_c))
+    ten_c = torch.randint(-1, 5, (NODES, 12), generator=gen,
+                          dtype=torch.int32)
+    ten_g = ten_c.to(dev)
     variants = program_variants(dev)
+    topo = Topology.boards(2, 4)
     runs_before = _build.nvcc_runs
     kw = dict(num_nodes=NODES, budget=8, channels=2)
+    tel = dict(collect_telemetry=True, max_tenants=3)
     for name, prog in variants.items():
         prog_c = prog.to("cpu")
+        topology = topo if name == "hierarchical" else None
         for ab in (None, (ab_g, ab_c)):
             ab_dev, ab_cpu = (None, None) if ab is None else ab
-            got = bridge.pull_pages(pool_g, want_g, table_g, program=prog,
-                                    active_budget=ab_dev, **kw)
+            got, got_t = bridge.pull_pages(
+                pool_g, want_g, table_g, program=prog, active_budget=ab_dev,
+                topology=topology, tenant_ids=ten_g, **kw, **tel)
             want = bridge.pull_pages(pool_c, want_c, table_c, program=prog_c,
                                      active_budget=ab_cpu, **kw)
             if not torch.equal(got.cpu(), want):
                 raise AssertionError(f"8-node pull under {name} disagrees "
                                      f"with the plain path")
-            bridge.push_pages(pool_g, dest_g, pay_g, table_g, program=prog,
-                              active_budget=ab_dev, **kw)
+            hold_transfer_counters(
+                f"8-node pull under {name}", got_t, tref.
+                expected_transfer_telemetry(
+                    want_c, table_c, prog_c, num_nodes=NODES, budget=8,
+                    active_budget=ab_cpu, topology=topology,
+                    tenant_ids=ten_c, max_tenants=3))
+            _, got_t = bridge.push_pages(
+                pool_g, dest_g, pay_g, table_g, program=prog,
+                active_budget=ab_dev, topology=topology, **kw, **tel)
             bridge.push_pages(pool_c, dest_c, pay_c, table_c, program=prog_c,
                               active_budget=ab_cpu, **kw)
             if not torch.equal(pool_g.cpu(), pool_c):
                 raise AssertionError(f"8-node push under {name} disagrees "
                                      f"with the plain path")
+            hold_transfer_counters(
+                f"8-node push under {name}", got_t, tref.
+                expected_transfer_telemetry(
+                    dest_c, table_c, prog_c, num_nodes=NODES, budget=8,
+                    active_budget=ab_cpu, topology=topology, max_tenants=3))
     if _build.nvcc_runs != runs_before:
         raise AssertionError("swapping route programs ran nvcc")
     prog = variants["hierarchical"]
@@ -1601,13 +1992,33 @@ def programs_swap(dev="cuda") -> dict:
                                    active_budget=ab_g, **kw)
         bridge.push_pages(pool_g, dest_g, pay_g, table_g, program=prog,
                           active_budget=ab_g, **kw)
+        # and with the counters on, a tenant lane and the program's fabric
+        _, pull_t = bridge.pull_pages(
+            pool_g, want_g, table_g, program=prog, active_budget=ab_g,
+            topology=topo, tenant_ids=ten_g, **kw, **tel)
+        _, push_t = bridge.push_pages(
+            pool_g, dest_g, pay_g, table_g, program=prog, active_budget=ab_g,
+            topology=topo, tenant_ids=ten_g[:, :6], **kw, **tel)
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
     if not torch.isfinite(pulled.float()).all():
         raise AssertionError("sync-debug round trip pulled non-finite pages")
+    prog_c = prog.to("cpu")
+    hold_transfer_counters("sync-debug pull", pull_t,
+                           tref.expected_transfer_telemetry(
+                               want_c, table_c, prog_c, num_nodes=NODES,
+                               budget=8, active_budget=ab_c, topology=topo,
+                               tenant_ids=ten_c, max_tenants=3))
+    hold_transfer_counters("sync-debug push", push_t,
+                           tref.expected_transfer_telemetry(
+                               dest_c, table_c, prog_c, num_nodes=NODES,
+                               budget=8, active_budget=ab_c, topology=topo,
+                               tenant_ids=ten_c[:, :6], max_tenants=3))
     out = dict(programs=list(variants), nvcc_runs_during_swaps=0,
-               sync_debug_round_trip="ok")
+               sync_debug_round_trip="ok",
+               counters_equal_oracle="every program, throttled and not, "
+                                     "and under the sync debugger")
     print("programs:", json.dumps(out))
     return out
 
@@ -1657,7 +2068,16 @@ def main() -> int:
                            "bound_by", "library_ms")})
     t_phase = time.perf_counter()
     cfg, params, gen = full_params()
-    full_width(report, cfg, params, gen)
+    full_out, ctx = full_width(report, cfg, params, gen)
+    print(f"decode phase, pull: {time.perf_counter() - t_phase:.1f} s")
+    t_sub = time.perf_counter()
+    push_paths(report, cfg, params, ctx)
+    print(f"decode phase, push: {time.perf_counter() - t_sub:.1f} s")
+    t_sub = time.perf_counter()
+    telemetry_runs(report, cfg, params, ctx, full_out)
+    print(f"decode phase, telemetry: {time.perf_counter() - t_sub:.1f} s")
+    del ctx
+    torch.cuda.empty_cache()
     reduced_f32()
     print(f"decode phases: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()

@@ -26,12 +26,18 @@ runtime rate limiter ``active_budget`` spills what lies past
 
 ``channels`` splits each round's ``budget`` lanes into virtual channels of
 ``ceil(budget / channels)`` lanes: what is served never changes, the push
-commit order follows the reference's grid.  The table, the program and
-``active_budget`` stay device tensors: nothing here copies a value to the
-host, so swapping any of them between calls builds and synchronises
-nothing.  In-band telemetry comes with a later slice of the port and raises
-here; the unfused, pipelined and bufferless engines and the "ladder"
-exchange lowering are not ported (the port runs the fused "a2a" engine).
+commit order follows the reference's grid.  ``overprovision`` multiplies
+the round count, so a throttled rate limiter can still serve every
+request.  The table, the program, ``active_budget`` and the tenant lane
+stay device tensors: nothing here copies a value to the host, so swapping
+any of them between calls builds and synchronises nothing.
+
+``collect_telemetry`` also returns the transfer's in-band counters
+(:mod:`repro_torch.telemetry.counters`), computed from the same request
+lists with tensor ops for all requester rows at once; they launch none of
+the port's kernels.  The unfused, pipelined and bufferless engines and the
+"ladder" exchange lowering are not ported (the port runs the fused "a2a"
+engine), nor is the loopback path's ``table_nodes``.
 """
 from __future__ import annotations
 
@@ -43,13 +49,9 @@ import torch
 from repro_torch.core import steering
 from repro_torch.core.memport import FREE, MemPortTable
 from repro_torch.core.steering import RouteProgram
+from repro_torch.core.topology import Topology
 from repro_torch.kernels import bridge_gather as _bg
-
-
-def _unported(collect_telemetry) -> None:
-    if collect_telemetry:
-        raise NotImplementedError(
-            "in-band telemetry comes with a later slice of the port")
+from repro_torch.telemetry import counters as _telemetry
 
 
 def _resolve_channels(channels: int) -> int:
@@ -78,6 +80,25 @@ def _resolve_program(program: Optional[RouteProgram], num_nodes: int,
     return program
 
 
+_FLAT_TOPOLOGIES: dict = {}
+
+
+def _resolve_topology(topology: Optional[Topology],
+                      num_nodes: int) -> Topology:
+    """Default (flat single-board, one per node count) fabric + node-count
+    check; a Topology keeps its device tables, so reusing one uploads
+    nothing."""
+    if topology is None:
+        if num_nodes not in _FLAT_TOPOLOGIES:
+            _FLAT_TOPOLOGIES[num_nodes] = Topology.flat(num_nodes)
+        return _FLAT_TOPOLOGIES[num_nodes]
+    if topology.num_nodes != num_nodes:
+        raise ValueError(
+            f"topology spans {topology.num_nodes} endpoints; the bridge has "
+            f"{num_nodes}")
+    return topology
+
+
 def _budget_vec(active_budget, num_nodes: int, budget: int,
                 device) -> torch.Tensor:
     """Per-node rate limiter i64[N] clipped to ``[0, budget]`` (a scalar is
@@ -96,12 +117,13 @@ def _budget_vec(active_budget, num_nodes: int, budget: int,
 # ---------------------------------------------------------------------------
 
 def _loopback_rows(ids: torch.Tensor, table: MemPortTable, ppn: int,
-                   rounds: int, budget: int, active_budget) -> torch.Tensor:
-    """Padded requests [..., rounds*budget] -> flat pool rows i32[N*R]."""
+                   rounds: int, budget: int, active_budget):
+    """Padded requests [..., rounds*budget] -> (flat pool rows i32[N*R],
+    the requests' home nodes)."""
     home, slot = table.translate(ids.reshape(-1))
     flat = torch.where(home >= 0, home * ppn + slot, FREE)
     if active_budget is None:
-        return flat
+        return flat, home
     # Rate-limiter parity with the N-device path: round r serves request
     # indices [r*ab, (r+1)*ab), so anything past rounds*ab spills off the
     # end of the round budget and is dropped.
@@ -109,7 +131,7 @@ def _loopback_rows(ids: torch.Tensor, table: MemPortTable, ppn: int,
     ab = ab.clamp(0, budget)
     idx = torch.arange(ids.shape[-1], device=ids.device)
     served = torch.broadcast_to(idx < rounds * ab, ids.shape).reshape(-1)
-    return torch.where(served, flat, FREE)
+    return torch.where(served, flat, FREE), home
 
 
 def _pad_requests(ids: torch.Tensor, rounds: int, budget: int):
@@ -195,13 +217,13 @@ def _pull_operands(window: torch.Tensor, table: MemPortTable,
 
 def _pull_nodes(pool: torch.Tensor, want: torch.Tensor, table: MemPortTable,
                 ab: torch.Tensor, program: RouteProgram, *, num_nodes: int,
-                budget: int, channels: int) -> torch.Tensor:
+                budget: int, channels: int, rounds: int) -> torch.Tensor:
     """Fused pull: per round one gather into the a2a send buffer and one
     commit, for all N nodes."""
     ppn = pool.shape[0] // num_nodes
     lanes = channels * -(-budget // channels)
     chunks = []
-    for rnd in range(steering.num_rounds(want.shape[-1], budget)):
+    for rnd in range(rounds):
         window = _fused_window(want, rnd, ab, lanes)
         send_rows, choice, loop_slot = _pull_operands(window, table, program,
                                                       num_nodes, ppn)
@@ -226,10 +248,11 @@ def _push_slots(window: torch.Tensor, table: MemPortTable,
 
 def _push_nodes(pool: torch.Tensor, dest: torch.Tensor, payload: torch.Tensor,
                 table: MemPortTable, ab: torch.Tensor, program: RouteProgram,
-                *, num_nodes: int, budget: int, channels: int) -> None:
+                *, num_nodes: int, budget: int, channels: int,
+                rounds: int) -> None:
     """Fused push: per round one in-place commit for all N homes."""
     cb = -(-budget // channels)
-    for rnd in range(steering.num_rounds(dest.shape[-1], budget)):
+    for rnd in range(rounds):
         window = _fused_window(dest, rnd, ab, channels * cb)
         _bg.push_commit(pool, _push_slots(window, table, program, num_nodes),
                         payload, (rnd * ab).to(torch.int32),
@@ -258,11 +281,64 @@ def _check_nodes(pool_pages: torch.Tensor, ids: torch.Tensor,
     return _resolve_program(program, num_nodes, pool_pages.device)
 
 
+def _telemetry_inputs(ids: torch.Tensor, tenant_ids, max_tenants: int):
+    """Check the tenant lane's shape; the static tenant width (0 = the
+    default)."""
+    if tenant_ids is not None and tuple(tenant_ids.shape) != tuple(ids.shape):
+        raise ValueError(f"tenant_ids shape {list(tenant_ids.shape)} != "
+                         f"request shape {list(ids.shape)}")
+    return max_tenants if max_tenants > 0 else _telemetry.DEFAULT_MAX_TENANTS
+
+
+def _loopback_telemetry(ids: torch.Tensor, home: torch.Tensor,
+                        table: MemPortTable, topology: Optional[Topology],
+                        active_budget, budget: int, rounds: int, tenant_ids,
+                        max_tenants: int) -> _telemetry.BridgeTelemetry:
+    """Counters of the loopback path: row i of the padded requests ``ids``
+    (``home``: their home nodes) is logical requester i on a one-node
+    ring; every row shares ``active_budget``'s first value, as the
+    loopback rate limiter does."""
+    _resolve_topology(topology, 1)
+    dev = ids.device
+    if active_budget is None or not torch.is_tensor(active_budget):
+        ab = torch.full((), budget if active_budget is None
+                        else int(np.asarray(active_budget).reshape(-1)[0]),
+                        dtype=torch.long, device=dev)
+    else:
+        ab = active_budget.reshape(-1)[0].to(device=dev, dtype=torch.long)
+    rows = ids.reshape(-1, ids.shape[-1])
+    if tenant_ids is not None:
+        tenant_ids, _ = _pad_requests(tenant_ids.reshape(rows.shape[0], -1),
+                                      rounds, budget)
+    return _telemetry.transfer_telemetry(
+        rows, table, None, ab,
+        my=torch.arange(rows.shape[0], device=dev), num_nodes=1,
+        budget=budget, rounds=rounds, pairs=None, tenant_ids=tenant_ids,
+        max_tenants=max_tenants, home=home.reshape(rows.shape))
+
+
+def _nodes_telemetry(ids: torch.Tensor, table: MemPortTable,
+                     program: RouteProgram, topology: Optional[Topology],
+                     ab: torch.Tensor, *, num_nodes: int, budget: int,
+                     rounds: int, tenant_ids,
+                     max_tenants: int) -> _telemetry.BridgeTelemetry:
+    """Counters of the N-node engine: one row per ring node."""
+    return _telemetry.transfer_telemetry(
+        ids, table, program, ab,
+        my=torch.arange(num_nodes, device=ids.device), num_nodes=num_nodes,
+        budget=budget, rounds=rounds,
+        pairs=_resolve_topology(topology, num_nodes).pair_table(ids.device),
+        tenant_ids=tenant_ids, max_tenants=max_tenants)
+
+
 def pull_pages(pool_pages: torch.Tensor, want: torch.Tensor,
                table: MemPortTable, *, num_nodes: int = 1, budget: int = 8,
-               channels: int = 1, active_budget=None,
+               channels: int = 1, overprovision: int = 1, active_budget=None,
                program: Optional[RouteProgram] = None,
-               collect_telemetry: bool = False) -> torch.Tensor:
+               collect_telemetry: bool = False,
+               topology: Optional[Topology] = None,
+               tenant_ids: Optional[torch.Tensor] = None,
+               max_tenants: int = 0):
     """Pull logical pages through the bridge.
 
     Args:
@@ -274,43 +350,69 @@ def pull_pages(pool_pages: torch.Tensor, want: torch.Tensor,
       budget: pages per round (static).
       channels: virtual channels per round (static, >= 1); what is served
         does not depend on it.  Ignored on the loopback path.
+      overprovision: round-count multiplier (static, >= 1).
       active_budget: runtime rate limiter (int, or a device tensor of one
         value or one per node), clipped to ``[0, budget]``; None serves
         every request.  The loopback path applies its first value.
       program: runtime route program (default: full bidirectional
         coverage); requests whose circuit it does not wire come back as
         zeros.
-      collect_telemetry: a later slice; must stay unset.
+      collect_telemetry: also return the transfer's
+        :class:`~repro_torch.telemetry.counters.BridgeTelemetry` (one row
+        per node; on the loopback path one row per request row).
+      topology: the static board + rack fabric the counters classify tiers
+        by (default: one flat board).
+      tenant_ids: tenant-id lane of ``want``'s shape, only observed by the
+        counters (None = all tenant 0); ignored without
+        ``collect_telemetry``.
+      max_tenants: static width of the tenant histograms (0 = the default).
     Returns:
       [num_nodes, R, *page_shape] gathered pages (zeros for FREE, spilled,
-      unwired and unmapped requests).
+      unwired and unmapped requests), or ``(pages, telemetry)`` when
+      ``collect_telemetry`` is set.
     """
-    _unported(collect_telemetry)
     channels = _resolve_channels(channels)
+    max_tenants = _telemetry_inputs(want, tenant_ids, max_tenants)
     program = _check_nodes(pool_pages, want, num_nodes, program)
     r = want.shape[-1]
-    rounds = steering.num_rounds(r, budget)
+    rounds = steering.num_rounds(r, budget, overprovision)
     if num_nodes > 1:
-        if rounds == 0:
-            return pool_pages.new_zeros((num_nodes, r) + pool_pages.shape[1:])
         ab = _budget_vec(active_budget, num_nodes, budget, pool_pages.device)
-        return _pull_nodes(pool_pages, want, table, ab, program,
-                           num_nodes=num_nodes, budget=budget,
-                           channels=channels)
-    want, _ = _pad_requests(want, rounds, budget)
-    flat = _loopback_rows(want, table, pool_pages.shape[0], rounds, budget,
-                          active_budget)
+        if rounds == 0:
+            out = pool_pages.new_zeros((num_nodes, r) + pool_pages.shape[1:])
+        else:
+            out = _pull_nodes(pool_pages, want, table, ab, program,
+                              num_nodes=num_nodes, budget=budget,
+                              channels=channels, rounds=rounds)
+        if collect_telemetry:
+            return out, _nodes_telemetry(
+                want, table, program, topology, ab, num_nodes=num_nodes,
+                budget=budget, rounds=rounds, tenant_ids=tenant_ids,
+                max_tenants=max_tenants)
+        return out
+    padded, _ = _pad_requests(want, rounds, budget)
+    flat, home = _loopback_rows(padded, table, pool_pages.shape[0], rounds,
+                                budget, active_budget)
     out = _bg.gather_pages(pool_pages, flat)
-    out = out.view(tuple(want.shape) + tuple(pool_pages.shape[1:]))
+    out = out.view(tuple(padded.shape) + tuple(pool_pages.shape[1:]))
     # Trim the round padding on the request dim.
-    return out.narrow(want.dim() - 1, 0, r)
+    out = out.narrow(want.dim() - 1, 0, r)
+    if collect_telemetry:
+        return out, _loopback_telemetry(padded, home, table, topology,
+                                        active_budget, budget, rounds,
+                                        tenant_ids, max_tenants)
+    return out
 
 
 def push_pages(pool_pages: torch.Tensor, dest: torch.Tensor,
                payload: torch.Tensor, table: MemPortTable, *,
                num_nodes: int = 1, budget: int = 8, channels: int = 1,
-               active_budget=None, program: Optional[RouteProgram] = None,
-               collect_telemetry: bool = False) -> torch.Tensor:
+               overprovision: int = 1, active_budget=None,
+               program: Optional[RouteProgram] = None,
+               collect_telemetry: bool = False,
+               topology: Optional[Topology] = None,
+               tenant_ids: Optional[torch.Tensor] = None,
+               max_tenants: int = 0):
     """Write pages to their homes through the bridge.
 
     Args as :func:`pull_pages`, plus dest: [num_nodes, R] logical page ids
@@ -319,32 +421,42 @@ def push_pages(pool_pages: torch.Tensor, dest: torch.Tensor,
     as do writes over an unwired circuit; among one node's writes to one
     page the last wins (pages have a single writer node).  Where the
     reference donates the pool buffer, the port updates ``pool_pages`` in
-    place and returns it.
+    place and returns it, or ``(pool_pages, telemetry)`` with
+    ``collect_telemetry``.
     """
-    _unported(collect_telemetry)
     channels = _resolve_channels(channels)
+    max_tenants = _telemetry_inputs(dest, tenant_ids, max_tenants)
     program = _check_nodes(pool_pages, dest, num_nodes, program)
     r = dest.shape[-1]
-    rounds = steering.num_rounds(r, budget)
+    rounds = steering.num_rounds(r, budget, overprovision)
     if tuple(payload.shape) != tuple(dest.shape) + tuple(pool_pages.shape[1:]):
         raise ValueError(f"payload {list(payload.shape)} does not match "
                          f"dest {list(dest.shape)} pages of "
                          f"{list(pool_pages.shape[1:])}")
     payload = payload.to(pool_pages.dtype)
     if num_nodes > 1:
+        ab = _budget_vec(active_budget, num_nodes, budget, pool_pages.device)
         if rounds:
-            ab = _budget_vec(active_budget, num_nodes, budget,
-                             pool_pages.device)
             _push_nodes(pool_pages, dest, payload.contiguous(), table, ab,
                         program, num_nodes=num_nodes, budget=budget,
-                        channels=channels)
+                        channels=channels, rounds=rounds)
+        if collect_telemetry:
+            return pool_pages, _nodes_telemetry(
+                dest, table, program, topology, ab, num_nodes=num_nodes,
+                budget=budget, rounds=rounds, tenant_ids=tenant_ids,
+                max_tenants=max_tenants)
         return pool_pages
-    dest, pad = _pad_requests(dest, rounds, budget)
+    padded, pad = _pad_requests(dest, rounds, budget)
     if pad:
         zeros = payload.new_zeros(payload.shape[:1] + (pad,)
                                   + payload.shape[2:])
         payload = torch.cat([payload, zeros], 1)
-    flat = _loopback_rows(dest, table, pool_pages.shape[0], rounds, budget,
-                          active_budget)
+    flat, home = _loopback_rows(padded, table, pool_pages.shape[0], rounds,
+                                budget, active_budget)
     flat_pay = payload.reshape((-1,) + tuple(payload.shape[2:]))
-    return _bg.scatter_pages(pool_pages, flat, flat_pay.contiguous())
+    out = _bg.scatter_pages(pool_pages, flat, flat_pay.contiguous())
+    if collect_telemetry:
+        return out, _loopback_telemetry(padded, home, table, topology,
+                                        active_budget, budget, rounds,
+                                        tenant_ids, max_tenants)
+    return out

@@ -11,12 +11,20 @@ batch splits over the nodes: node i requests and flushes the pages of
 sequences ``i * per_node .. (i + 1) * per_node - 1`` (``per_node =
 ceil(B / N)``; padding rows carry FREE).  The tail (partially-filled) page
 of each sequence stays in a local write buffer and is flushed through the
-bridge once, when it fills.  Decode attention in ``bridge_pull`` placement
-pulls the flushed pages one bridge round at a time (``N * budget`` pages,
-node-major) and folds each round straight into the float32 flash-decode
-state (:func:`~repro_torch.kernels.bridge_attention.
-stream_decode_accumulate`), then merges the tail page's partial.
+bridge once, when it fills.  Two decode-attention placements:
 
+* ``bridge_pull`` pulls the flushed pages one bridge round at a time
+  (``N * budget`` pages, node-major) and folds each round straight into the
+  float32 flash-decode state (:func:`~repro_torch.kernels.bridge_attention.
+  stream_decode_accumulate`), then merges the tail page's partial;
+* ``bridge_push`` (compute at the memory) computes a partial attention per
+  memory node over the slots it holds and combines the partials by their
+  log-sum-exp (the reference's ``pmax`` / ``psum`` become a max and a sum
+  over the node axis), then merges the tail.  As in the reference this is
+  plain tensor code; only its flushes launch the bridge's write kernels.
+
+With ``collect_telemetry`` the flushes and pulls also return the bridge's
+in-band counters, summed over the k and v transfers and over the rounds.
 The reference's buffers are immutable; the port updates the pools and the
 tail buffers in place.
 """
@@ -31,6 +39,7 @@ from repro_torch.core import bridge
 from repro_torch.core.memport import FREE, MemPortTable
 from repro_torch.core.steering import RouteProgram
 from repro_torch.kernels.bridge_attention import stream_decode_accumulate
+from repro_torch.telemetry import counters as telemetry_counters
 
 NEG_INF = -1e30
 
@@ -43,6 +52,48 @@ class PagedKVLayer:
     v_pool: torch.Tensor        # [slots, T, kv, hd]
     tail_k: torch.Tensor        # [B, T, kv, hd]  local write buffer
     tail_v: torch.Tensor        # [B, T, kv, hd]
+
+
+@dataclass
+class PagedKVCache:
+    """Whole-model paged cache: the layers' tensors stacked on a leading
+    layer axis (layer i is ``PagedKVLayer(*(t[i] for t in ...))``)."""
+
+    layers: PagedKVLayer     # tensors [L, ...]
+    table: MemPortTable      # shared logical (b, page) -> (home, slot)
+    lengths: torch.Tensor    # i32[B] tokens already cached
+    page_tokens: int
+    max_pages: int
+
+    @property
+    def batch(self) -> int:
+        return self.lengths.shape[0]
+
+
+def init_cache(num_layers: int, batch: int, max_len: int, page_tokens: int,
+               kv_heads: int, head_dim: int, *, num_nodes: int = 1,
+               dtype=torch.bfloat16, table: Optional[MemPortTable] = None,
+               lengths: Optional[torch.Tensor] = None,
+               device="cuda") -> PagedKVCache:
+    """An empty cache striped over ``num_nodes`` memory nodes."""
+    max_pages = -(-max_len // page_tokens)
+    slots_per_node = -(-batch * max_pages // num_nodes)
+    num_slots = num_nodes * slots_per_node
+    if table is None:
+        table = MemPortTable.striped(batch * max_pages, num_nodes,
+                                     slots_per_node, device=device)
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    pool = (num_layers, num_slots, page_tokens, kv_heads, head_dim)
+    tail = (num_layers, batch, page_tokens, kv_heads, head_dim)
+    layers = PagedKVLayer(k_pool=zeros(*pool), v_pool=zeros(*pool),
+                          tail_k=zeros(*tail), tail_v=zeros(*tail))
+    if lengths is None:
+        lengths = torch.zeros((batch,), dtype=torch.int32, device=device)
+    return PagedKVCache(layers=layers, table=table, lengths=lengths,
+                        page_tokens=page_tokens, max_pages=max_pages)
 
 
 def logical_page_ids(batch: int, max_pages: int, *,
@@ -63,6 +114,43 @@ def _merge(m1, l1, o1, m2, l2, o2):
     a1 = torch.exp(m1 - m)
     a2 = torch.exp(m2 - m)
     return m, l1 * a1 + l2 * a2, o1 * a1[..., None] + o2 * a2[..., None]
+
+
+def _page_partial(q, k, v, valid):
+    """Partial attention of per-page queries q [R, H, hd] against one page
+    each: k, v [R, T, kv, hd], valid [R, T] bool.  Returns per-page
+    partials (m [R, H], l [R, H], o [R, H, hd])."""
+    r, t, kv, hd = k.shape
+    h = q.shape[-2]
+    g = h // kv
+    qf = q.reshape(r, kv, g, hd).float()
+    s = torch.einsum("rkgd,rtkd->rkgt", qf, k.float()) * hd ** -0.5
+    mask = valid[:, None, None, :]
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(-1)
+    p = torch.exp(s - m[..., None])
+    p = torch.where(mask, p, 0.0)
+    l = p.sum(-1)
+    o = torch.einsum("rkgt,rtkd->rkgd", p, v.float())
+    return m.reshape(r, h), l.reshape(r, h), o.reshape(r, h, hd)
+
+
+def _segment_combine(m, l, o, seg, num_segments):
+    """LSE-combine per-page partials into per-segment accumulators; pages
+    with ``seg`` outside ``[0, num_segments)`` are dropped."""
+    seg = torch.where((seg >= 0) & (seg < num_segments), seg,
+                      num_segments).long()
+    h = m.shape[-1]
+    m_seq = torch.full((num_segments + 1, h), float("-inf"),
+                       dtype=m.dtype, device=m.device)
+    m_seq.scatter_reduce_(0, seg[:, None].expand(-1, h), m, "amax")
+    m_seq = m_seq[:num_segments].clamp(min=NEG_INF)
+    a = torch.exp(m - m_seq[seg.clamp(max=num_segments - 1)])
+    a = torch.where((seg < num_segments)[:, None], a, 0.0)
+    l_seq = l.new_zeros((num_segments + 1, h)).index_add_(0, seg, l * a)
+    o_seq = o.new_zeros((num_segments + 1,) + tuple(o.shape[1:])).index_add_(
+        0, seg, o * a[..., None])
+    return m_seq, l_seq[:num_segments], o_seq[:num_segments]
 
 
 def _tail_partial(q, tail_k, tail_v, lengths, page_tokens):
@@ -105,8 +193,10 @@ def _by_node(x: torch.Tensor, num_nodes: int, fill=0) -> torch.Tensor:
 def append(layer: PagedKVLayer, table: MemPortTable, lengths: torch.Tensor,
            k_new: torch.Tensor, v_new: torch.Tensor, *, page_tokens: int,
            max_pages: int, num_nodes: int = 1, budget: int = 8,
-           channels: int = 1,
-           program: Optional[RouteProgram] = None) -> PagedKVLayer:
+           channels: int = 1, program: Optional[RouteProgram] = None,
+           collect_telemetry: bool = False, topology=None,
+           tenant_of_seq: Optional[torch.Tensor] = None,
+           max_tenants: int = 0):
     """Append one token's (k, v) [B, kv, hd] for one layer.
 
     Tokens land in the local tail buffer; when a sequence's tail page fills,
@@ -114,7 +204,10 @@ def append(layer: PagedKVLayer, table: MemPortTable, lengths: torch.Tensor,
     ``push_pages`` per pool over ``num_nodes`` nodes: sequences not at a
     page boundary, and the padding rows of a batch that does not split
     evenly over the nodes, carry FREE).  ``channels`` and ``program`` thread
-    to the bridge.  Updates ``layer``'s tensors in place and returns it.
+    to the bridge.  Updates ``layer``'s tensors in place and returns it, or
+    ``(layer, telemetry)`` with ``collect_telemetry``: the write-path
+    counters of both pushes summed; ``tenant_of_seq`` (i32[B] on the
+    device) attributes each sequence's flushes to its tenant.
     """
     b = lengths.shape[0]
     rows = torch.arange(b, device=lengths.device)
@@ -130,15 +223,20 @@ def append(layer: PagedKVLayer, table: MemPortTable, lengths: torch.Tensor,
     # push into logical page 0 (sequence 0's first KV page) every step.
     dest = _by_node(dest.to(torch.int32), num_nodes, fill=FREE)  # [N, B/N]
     kw = dict(num_nodes=num_nodes, budget=budget, channels=channels,
-              program=program)
-    bridge.push_pages(layer.k_pool, dest, _by_node(layer.tail_k, num_nodes),
-                      table, **kw)
-    bridge.push_pages(layer.v_pool, dest, _by_node(layer.tail_v, num_nodes),
-                      table, **kw)
+              program=program, collect_telemetry=collect_telemetry,
+              topology=topology, max_tenants=max_tenants)
+    if collect_telemetry and tenant_of_seq is not None:
+        kw["tenant_ids"] = _by_node(tenant_of_seq.to(torch.int32), num_nodes)
+    k_out = bridge.push_pages(layer.k_pool, dest,
+                              _by_node(layer.tail_k, num_nodes), table, **kw)
+    v_out = bridge.push_pages(layer.v_pool, dest,
+                              _by_node(layer.tail_v, num_nodes), table, **kw)
     # A flushed tail restarts empty (zeros are fine: positions are masked).
     flushed = page_full[:, None, None, None]
     layer.tail_k.masked_fill_(flushed, 0)
     layer.tail_v.masked_fill_(flushed, 0)
+    if collect_telemetry:
+        return layer, telemetry_counters.add(k_out[1], v_out[1])
     return layer
 
 
@@ -151,8 +249,10 @@ def decode_attention_pull(q: torch.Tensor, layer: PagedKVLayer,
                           page_tokens: int, max_pages: int,
                           num_nodes: int = 1, budget: int = 8,
                           channels: int = 1,
-                          program: Optional[RouteProgram] = None
-                          ) -> torch.Tensor:
+                          program: Optional[RouteProgram] = None,
+                          collect_telemetry: bool = False, topology=None,
+                          tenant_of_seq: Optional[torch.Tensor] = None,
+                          max_tenants: int = 0):
     """Paper-faithful: pull pages through the bridge, attend locally.
 
     q: [B, H, hd] -> out [B, H, hd].  Node i requests the pages of its
@@ -161,7 +261,9 @@ def decode_attention_pull(q: torch.Tensor, layer: PagedKVLayer,
     per node, node-major: every round of the request list is pulled,
     all-FREE rounds included, in the reference's order, so each lane lands
     where it lands in the reference.  ``channels`` and ``program`` thread to
-    the bridge.
+    the bridge.  With ``collect_telemetry`` returns ``(out, telemetry)``:
+    the counters of the k and v pulls added each round, rounds added in
+    order; ``tenant_of_seq`` (i32[B]) attributes each sequence's pulls.
     """
     b, h, hd = q.shape
     kv = layer.k_pool.shape[-2]
@@ -173,7 +275,13 @@ def decode_attention_pull(q: torch.Tensor, layer: PagedKVLayer,
     want = _by_node(want.to(torch.int32), num_nodes, fill=FREE)
     want = want.reshape(num_nodes, -1)                  # [N, B/N * P]
     kw = dict(num_nodes=num_nodes, budget=budget, channels=channels,
-              program=program)
+              program=program, collect_telemetry=collect_telemetry,
+              topology=topology, max_tenants=max_tenants)
+    tenants = None
+    if collect_telemetry and tenant_of_seq is not None:
+        ten_b = tenant_of_seq.to(torch.int32)[:, None].expand(b, max_pages)
+        tenants = _by_node(ten_b, num_nodes).reshape(num_nodes, -1)
+    telem = None
 
     rtot = want.shape[-1]
     m_s = torch.full((b, h), NEG_INF, dtype=torch.float32, device=q.device)
@@ -181,8 +289,15 @@ def decode_attention_pull(q: torch.Tensor, layer: PagedKVLayer,
     o_s = torch.zeros((b, h, hd), dtype=torch.float32, device=q.device)
     for start in range(0, rtot, budget):
         want_r = want[:, start:start + budget]
+        if tenants is not None:
+            kw["tenant_ids"] = tenants[:, start:start + budget]
         k_r = bridge.pull_pages(layer.k_pool, want_r, table, **kw)
         v_r = bridge.pull_pages(layer.v_pool, want_r, table, **kw)
+        if collect_telemetry:
+            (k_r, telem_k), (v_r, telem_v) = k_r, v_r
+            round_t = telemetry_counters.add(telem_k, telem_v)
+            telem = (round_t if telem is None
+                     else telemetry_counters.add(telem, round_t))
         lanes = want_r.numel()
         wflat = want_r.reshape(-1)
         live = wflat >= 0
@@ -192,6 +307,68 @@ def decode_attention_pull(q: torch.Tensor, layer: PagedKVLayer,
             q, k_r.reshape(lanes, page_tokens, kv, hd),
             v_r.reshape(lanes, page_tokens, kv, hd), seq,
             live.to(torch.int32), m_s, l_s, o_s)
+
+    m_t, l_t, o_t = _tail_partial(q, layer.tail_k, layer.tail_v,
+                                  lengths, page_tokens)
+    m, l, o = _merge(m_s, l_s, o_s, m_t, l_t, o_t)
+    out = _finalize(m, l, o).to(q.dtype)
+    if collect_telemetry:
+        return out, telem
+    return out
+
+
+def _inverse_map(table: MemPortTable, slots_per_node: int,
+                 num_slots: int) -> torch.Tensor:
+    """i32[num_slots]: the logical page each pool row holds (FREE where
+    none), by one scatter on the device through a dump row."""
+    dev = table.home.device
+    logical = torch.arange(table.num_logical, dtype=torch.int32, device=dev)
+    home, slot = table.translate(logical)
+    flat = home.long() * slots_per_node + slot
+    flat = torch.where((home >= 0) & (flat >= 0) & (flat < num_slots), flat,
+                       num_slots)
+    inv = torch.full((num_slots + 1,), FREE, dtype=torch.int32, device=dev)
+    return inv.scatter_(0, flat, logical)[:num_slots]
+
+
+def decode_attention_push(q: torch.Tensor, layer: PagedKVLayer,
+                          table: MemPortTable, lengths: torch.Tensor, *,
+                          page_tokens: int, max_pages: int,
+                          num_nodes: int = 1) -> torch.Tensor:
+    """Beyond-paper: q goes to the memory nodes, each computes a partial
+    attention over the flushed pages it holds, and the partials merge by
+    their log-sum-exp (compute at memory / distributed flash-decode).
+
+    q: [B, H, hd] -> out [B, H, hd].  The inverse memport map (pool row ->
+    logical page) is computed on the device each call; the per-node
+    partials are the segments ``node * B + sequence`` of one combine.
+    """
+    b, h, hd = q.shape
+    num_slots = layer.k_pool.shape[0]
+    slots_per_node = num_slots // num_nodes
+    flushed = lengths // page_tokens
+    inv = _inverse_map(table, slots_per_node, num_slots)
+    seq = torch.where(inv >= 0, inv // max_pages, -1)
+    pg = torch.where(inv >= 0, inv % max_pages, 0)
+    fl = flushed[seq.clamp(0, b - 1)]
+    live = (seq >= 0) & (pg < fl)
+    pos = (pg[:, None] * page_tokens
+           + torch.arange(page_tokens, device=q.device)[None, :])
+    valid = live[:, None] & (pos < (fl * page_tokens)[:, None])
+    m_p, l_p, o_p = _page_partial(q[seq.clamp(0, b - 1)], layer.k_pool,
+                                  layer.v_pool, valid)
+    node = torch.arange(num_slots, device=q.device) // slots_per_node
+    seg = torch.where(live & (seq < b), node * b + seq, -1)
+    m_l, l_l, o_l = _segment_combine(m_p, l_p, o_p, seg, num_nodes * b)
+    if num_nodes == 1:
+        m_s, l_s, o_s = m_l, l_l, o_l
+    else:
+        # Cross-node LSE combine: the max, then the sums, over the nodes.
+        m_l = m_l.view(num_nodes, b, h)
+        m_s = m_l.amax(0)
+        a = torch.exp(m_l.clamp(min=NEG_INF) - m_s)
+        l_s = (l_l.view(num_nodes, b, h) * a).sum(0)
+        o_s = (o_l.view(num_nodes, b, h, hd) * a[..., None]).sum(0)
 
     m_t, l_t, o_t = _tail_partial(q, layer.tail_k, layer.tail_v,
                                   lengths, page_tokens)

@@ -40,11 +40,13 @@ def ring_distance(home: torch.Tensor, my_rank, num_nodes: int) -> torch.Tensor:
     return torch.where(home == FREE, -1, d)
 
 
-def num_rounds(num_requests: int, budget: int) -> int:
-    """Static round count for ``num_requests`` at ``budget`` pages/round."""
+def num_rounds(num_requests: int, budget: int, overprovision: int = 1) -> int:
+    """Static round count for ``num_requests`` at ``budget`` pages/round,
+    times ``overprovision`` (extra rounds that let a throttled rate
+    limiter still serve every request)."""
     if num_requests == 0:
         return 0
-    return -(-num_requests // max(budget, 1))
+    return -(-num_requests // max(budget, 1)) * max(overprovision, 1)
 
 
 def default_route_schedule(num_nodes: int) -> list[int]:

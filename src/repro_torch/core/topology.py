@@ -24,13 +24,32 @@ transfer holds):
   gateways in the program's direction.
 
 The flat single-board topology (:meth:`Topology.flat`) is the plain ring.
+
+:meth:`Topology.tables` is the device-side view of the layout, and
+:func:`pair_hops_device` mirrors :meth:`Topology.pair_hops` on it;
+:meth:`Topology.pair_table` holds its result for every pair, which the
+bridge's in-band telemetry reads.  Both are made once per device and kept,
+so a transfer with telemetry copies nothing to the device.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Sequence, Tuple
 
 import numpy as np
+import torch
+
+
+@dataclass(frozen=True)
+class TopoTables:
+    """Device-side view of a topology (what the telemetry counters read).
+
+    All three are i32[N] indexed by node rank.
+    """
+
+    group: torch.Tensor        # board id of each rank
+    local_rank: torch.Tensor   # rank within its board
+    group_size: torch.Tensor   # size of the rank's board
 
 
 @dataclass(frozen=True, eq=False)
@@ -54,6 +73,7 @@ class Topology:
     rack_hop_us: float = 4.0
     board_link_gbps: float = 50.0
     rack_link_gbps: float = 25.0
+    _tables: dict = field(default_factory=dict, init=False, repr=False)
 
     def __post_init__(self):
         g = np.asarray(self.group, np.int64)
@@ -144,8 +164,72 @@ class Topology:
         loop = req == home
         return np.where(loop, 0, board), np.where(loop, 0, rack)
 
+    # -- device-side view -----------------------------------------------------
+    def tables(self, device="cuda") -> TopoTables:
+        """The :class:`TopoTables` on ``device``, made on the first call for
+        that device and kept (a Topology is static)."""
+        key = str(torch.device(device))
+        if key not in self._tables:
+            def i32(a):
+                return torch.tensor(np.asarray(a).astype(np.int32),
+                                    device=device)
+            self._tables[key] = TopoTables(
+                group=i32(self.group), local_rank=i32(self.local_rank),
+                group_size=i32(self.group_sizes[self.group]))
+        return self._tables[key]
+
+    def pair_table(self, device="cuda") -> torch.Tensor:
+        """i32[2, N, N, 3]: (intra, board hops, rack hops) of requester r
+        and home h, index 0 when the pair's slot is driven clockwise and 1
+        otherwise, from :func:`pair_hops_device` on :meth:`tables`; made on
+        the first call for ``device`` and kept."""
+        key = ("pairs", str(torch.device(device)))
+        if key not in self._tables:
+            n = self.num_nodes
+            req = torch.arange(n, device=device)[:, None].expand(n, n)
+            home = req.T
+            sides = []
+            for sign in (1, -1):
+                sides.append(torch.stack([x.to(torch.int32) for x in (
+                    pair_hops_device(self.tables(device), self.num_groups,
+                                     req, home,
+                                     torch.full((n, n), sign,
+                                                device=device)))], -1))
+            self._tables[key] = torch.stack(sides)
+        return self._tables[key]
+
     def describe(self) -> str:
         return (f"topology: {self.num_nodes} endpoints on {self.num_groups} "
                 f"board(s) {self.group_sizes.tolist()}; board "
                 f"{self.board_hop_us}us/{self.board_link_gbps}GB/s, rack "
                 f"{self.rack_hop_us}us/{self.rack_link_gbps}GB/s")
+
+
+def pair_hops_device(tables: TopoTables, num_groups: int, my, home, sign):
+    """Tensor mirror of :meth:`Topology.pair_hops` for the telemetry.
+
+    ``my`` holds the requesters' ranks (a tensor broadcastable against
+    ``home``), ``home`` the per-request home ranks (FREE entries must be
+    masked by the caller), ``sign`` the per-request drive direction.
+    Returns (intra, board_hops, rack_hops).
+    """
+    safe = home.clamp(0, tables.group.shape[0] - 1).long()
+    if not torch.is_tensor(my):
+        my = torch.full((), int(my), device=home.device)
+    my = my.long()
+    g_r, l_r = tables.group[my], tables.local_rank[my]
+    size_r = tables.group_size[my]
+    g_h, l_h = tables.group[safe], tables.local_rank[safe]
+    size_h = tables.group_size[safe]
+    intra = g_h == g_r
+    board = torch.where(
+        intra,
+        torch.where(sign > 0, torch.remainder(l_h - l_r, size_r),
+                    torch.remainder(l_r - l_h, size_r)),
+        torch.minimum(l_r, size_r - l_r) + torch.minimum(l_h, size_h - l_h))
+    rack = torch.where(
+        intra, 0,
+        torch.where(sign > 0, torch.remainder(g_h - g_r, num_groups),
+                    torch.remainder(g_r - g_h, num_groups)))
+    loop = safe == my
+    return intra, torch.where(loop, 0, board), torch.where(loop, 0, rack)

@@ -1,4 +1,4 @@
-"""KV-cache placement through the bridge (the serve-side bridge client).
+"""KV-cache placements through the bridge (the serve-side bridge client).
 
 Implements the cache-ops protocol used by
 :func:`repro_torch.models.transformer.decode_step`:
@@ -8,14 +8,18 @@ Implements the cache-ops protocol used by
     append_and_attend(cfg, st, shared, lengths, q, k_new, v_new, *, window)
         -> (att_out [B, H, hd], new_st)
 
-:class:`BridgeCacheOps` keeps every layer's KV pages in a pool striped over
-``num_nodes`` memory nodes and addressed through one memport table and, in
-``pull`` mode, pulls them back through the bridge each step: the loopback
-path for one node, the fused N-node engine steered by a route program
-otherwise.  The table and the program live in the shared state
-(``state["kv_shared"]``) as runtime inputs: the control plane may swap either
-between steps.  ``push`` mode (compute at the memory), the sliding-window
-ring buffer and telemetry come with later slices of the port.
+* :class:`RingCacheOps` — a bounded ring buffer of the last ``window``
+  tokens (``max_len`` on full-attention layers);
+* :class:`BridgeCacheOps` — every full-attention layer's KV pages in a pool
+  striped over ``num_nodes`` memory nodes and addressed through one memport
+  table.  ``pull`` mode pulls them back through the bridge each step (the
+  loopback path for one node, the fused N-node engine steered by a route
+  program otherwise); ``push`` mode computes attention at the memory
+  nodes.  Sliding-window layers keep a local ring (their state is bounded).
+  The table and the program live in the shared state
+  (``state["kv_shared"]``) as runtime inputs: the control plane may swap
+  either between steps.  With ``collect_telemetry`` every pooled layer's
+  state carries the cumulative bridge counters in ``st["telem"]``.
 """
 from __future__ import annotations
 
@@ -23,28 +27,81 @@ import torch
 
 from repro_torch.config import ModelConfig
 from repro_torch.core import kvbridge, steering
+from repro_torch.core.kvbridge import masked_decode_attention
 from repro_torch.core.memport import MemPortTable
+from repro_torch.telemetry import counters as telemetry_counters
+
+
+class RingCacheOps:
+    """Bounded sliding-window cache: stores the last ``window`` tokens,
+    written in place.  Attention is the reference's
+    ``_masked_gqa_attention``
+    (:func:`~repro_torch.core.kvbridge.masked_decode_attention`)."""
+
+    def __init__(self, max_len: int, dtype=torch.bfloat16, *, device="cuda"):
+        self.max_len = max_len
+        self.dtype = dtype
+        self.device = torch.device(device)
+
+    def init_shared(self, cfg: ModelConfig, batch: int):
+        return None
+
+    def init_layer(self, cfg: ModelConfig, batch: int, window: int = 0):
+        size = min(window, self.max_len) if window > 0 else self.max_len
+        shape = (batch, size, cfg.num_kv_heads, cfg.head_dim)
+        return {"k": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "v": torch.zeros(shape, dtype=self.dtype, device=self.device),
+                "pos": torch.full((batch, size), -1, dtype=torch.int32,
+                                  device=self.device)}
+
+    def append_and_attend(self, cfg, st, shared, lengths, q, k_new, v_new, *,
+                          window: int = 0):
+        rows = torch.arange(q.shape[0], device=q.device)
+        slot = lengths % st["k"].shape[1]
+        st["k"][rows, slot] = k_new.to(self.dtype)
+        st["v"][rows, slot] = v_new.to(self.dtype)
+        st["pos"][rows, slot] = lengths
+        pos = st["pos"]
+        visible = lengths + 1
+        mask = (pos >= 0) & (pos < visible[:, None])
+        if window > 0:
+            mask &= pos >= (visible - window).clamp(min=0)[:, None]
+        return masked_decode_attention(q, st["k"], st["v"], mask), st
 
 
 class BridgeCacheOps:
-    """Disaggregated paged KV through the bridge, ``pull`` mode, over
-    ``num_nodes`` memory nodes with ``channels`` virtual channels a round."""
+    """Disaggregated paged KV through the bridge, ``pull`` or ``push`` mode,
+    over ``num_nodes`` memory nodes with ``channels`` virtual channels a
+    round.
+
+    ``tenant_of_seq`` (one tenant id per batch slot; a list or array is
+    converted once to a device int32 tensor) attributes every page a slot
+    pulls or flushes to its tenant in the counters; ``max_tenants`` is their
+    static width (0 = the default); ``topology`` the fabric the counters
+    classify tiers by (default: one flat board).
+    """
 
     def __init__(self, *, mode: str, max_len: int, page_tokens: int,
                  num_nodes: int = 1, budget: int = 8, channels: int = 1,
+                 collect_telemetry: bool = False, tenant_of_seq=None,
+                 max_tenants: int = 0, topology=None,
                  dtype=torch.bfloat16, device="cuda"):
-        if mode != "pull":
-            raise NotImplementedError(
-                f"BridgeCacheOps mode {mode!r}: the push placement comes with "
-                f"a later slice of the port")
+        if mode not in ("pull", "push"):
+            raise ValueError(f"BridgeCacheOps mode {mode!r}")
         self.mode = mode
         self.max_len = max_len
         self.page_tokens = page_tokens
         self.max_pages = -(-max_len // page_tokens)
         self.budget = budget
         self.channels = channels
-        self.dtype = dtype
+        self.collect_telemetry = collect_telemetry
         self.device = torch.device(device)
+        self.tenant_of_seq = (None if tenant_of_seq is None else
+                              torch.as_tensor(tenant_of_seq).to(
+                                  device=self.device, dtype=torch.int32))
+        self.max_tenants = max_tenants
+        self.topology = topology
+        self.dtype = dtype
         self._num_nodes = num_nodes
 
     def num_nodes(self) -> int:
@@ -65,31 +122,62 @@ class BridgeCacheOps:
                 n, device=self.device)
         return shared
 
+    def _ring(self) -> RingCacheOps:
+        return RingCacheOps(self.max_len, self.dtype, device=self.device)
+
     def init_layer(self, cfg: ModelConfig, batch: int, window: int = 0):
-        if window > 0:
-            raise NotImplementedError(
-                "sliding-window layers keep a local ring buffer, which comes "
-                "with a later slice of the port")
+        if window > 0:      # sliding-window layers stay local (bounded)
+            return {"ring": self._ring().init_layer(cfg, batch, window)}
         kv, hd = cfg.num_kv_heads, cfg.head_dim
-        pool = (self.num_nodes() * self.slots_per_node(batch),
-                self.page_tokens, kv, hd)
+        n = self.num_nodes()
+        pool = (n * self.slots_per_node(batch), self.page_tokens, kv, hd)
         tail = (batch, self.page_tokens, kv, hd)
 
         def zeros(shape):
             return torch.zeros(shape, dtype=self.dtype, device=self.device)
 
-        return {"paged": kvbridge.PagedKVLayer(
+        st = {"paged": kvbridge.PagedKVLayer(
             k_pool=zeros(pool), v_pool=zeros(pool),
             tail_k=zeros(tail), tail_v=zeros(tail))}
+        if self.collect_telemetry:
+            st["telem"] = telemetry_counters.zeros(
+                n, leading=(n,),
+                max_tenants=(self.max_tenants
+                             or telemetry_counters.DEFAULT_MAX_TENANTS),
+                device=self.device)
+        return st
 
     def append_and_attend(self, cfg, st, shared, lengths, q, k_new, v_new, *,
                           window: int = 0):
+        if window > 0:
+            att, ring = self._ring().append_and_attend(
+                cfg, st["ring"], None, lengths, q, k_new, v_new,
+                window=window)
+            return att, {"ring": ring}
         table = shared["table"]
+        collect = self.collect_telemetry
         kw = dict(page_tokens=self.page_tokens, max_pages=self.max_pages,
-                  num_nodes=self.num_nodes(), budget=self.budget,
-                  channels=self.channels, program=shared.get("program"))
+                  num_nodes=self.num_nodes())
+        bridge_kw = dict(kw, budget=self.budget, channels=self.channels,
+                         program=shared.get("program"),
+                         collect_telemetry=collect, topology=self.topology,
+                         tenant_of_seq=self.tenant_of_seq,
+                         max_tenants=self.max_tenants)
         layer = kvbridge.append(st["paged"], table, lengths, k_new, v_new,
-                                **kw)
-        att = kvbridge.decode_attention_pull(q, layer, table, lengths + 1,
-                                             **kw)
-        return att, {"paged": layer}
+                                **bridge_kw)
+        if collect:
+            layer, telem = layer
+        visible = lengths + 1
+        if self.mode == "pull":
+            att = kvbridge.decode_attention_pull(q, layer, table, visible,
+                                                 **bridge_kw)
+            if collect:
+                att, pull_telem = att
+                telem = telemetry_counters.add(telem, pull_telem)
+        else:
+            att = kvbridge.decode_attention_push(q, layer, table, visible,
+                                                 **kw)
+        new_st = {"paged": layer}
+        if collect:
+            new_st["telem"] = telemetry_counters.add(st["telem"], telem)
+        return att, new_st

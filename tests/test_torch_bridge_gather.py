@@ -169,10 +169,15 @@ def test_memport_translate_matches_reference():
 
 @pytest.mark.parametrize("kwargs", [dict(collect_telemetry=True)])
 def test_unported_bridge_options_raise(kwargs):
-    pool = torch.zeros((4, 8))
-    want = torch.zeros((1, 4), dtype=torch.int32)
+    """The options that once raised here (in-band telemetry) now run: both
+    entry points return ``(pages, telemetry)``, one counter row per request
+    row on the loopback path."""
+    pool = torch.arange(32, dtype=torch.float32).reshape(4, 8)
+    want = torch.tensor([[2, -1, 0, 3]], dtype=torch.int32)
     table = TTable.striped(4, 1, 4, device="cpu")
-    with pytest.raises(NotImplementedError, match="slice"):
-        tbridge.pull_pages(pool, want, table, **kwargs)
-    with pytest.raises(NotImplementedError, match="slice"):
-        tbridge.push_pages(pool, want, pool[None], table, **kwargs)
+    pages, telem = tbridge.pull_pages(pool, want, table, **kwargs)
+    assert torch.equal(pages[0, 0], pool[2]) and not pages[0, 1].any()
+    assert telem.loopback_served.tolist() == [3]
+    assert telem.tenant_served.tolist() == [[3, 0, 0, 0]]
+    out, telem = tbridge.push_pages(pool, want, pool[None], table, **kwargs)
+    assert out is pool and telem.traffic.tolist() == [[3]]

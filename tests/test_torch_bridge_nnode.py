@@ -269,15 +269,17 @@ def test_nnode_arguments_are_checked():
     with pytest.raises(ValueError, match="payload"):
         tbridge.push_pages(pool, want, torch.zeros((n, 3) + PAGE), table,
                            num_nodes=n)
-    with pytest.raises(NotImplementedError, match="telemetry"):
+    with pytest.raises(ValueError, match="tenant_ids"):
         tbridge.push_pages(pool, want, torch.zeros((n, 2) + PAGE), table,
-                           num_nodes=n, collect_telemetry=True)
+                           num_nodes=n, collect_telemetry=True,
+                           tenant_ids=torch.zeros((n, 3), dtype=torch.int32))
 
 
 def test_nnode_engine_matches_jax_fused_engine_on_8_devices():
     """The JAX fused engine ("a2a" lowering, pull_commit / push_commit) on
     8 virtual CPU devices, bidirectional and hierarchical programs at
-    channels 2: the port's pages must match it bit for bit."""
+    channels 2: the port's pages and in-band counters must match it bit
+    for bit; then the 8-node push attention."""
     env = {"PYTHONPATH": str(REPO / "src"), "PATH": "/usr/bin:/bin",
            "HOME": os.environ.get("HOME", str(REPO)),
            "JAX_PLATFORMS": "cpu",
@@ -288,3 +290,4 @@ def test_nnode_engine_matches_jax_fused_engine_on_8_devices():
     assert proc.returncode == 0, (proc.stdout[-3000:], proc.stderr[-3000:])
     assert "ALL OK" in proc.stdout
     assert proc.stdout.count("ok: ") == 8
+    assert "push attention: " in proc.stdout
