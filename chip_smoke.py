@@ -84,7 +84,29 @@ prints no result):
               counters (a tenant lane) equal to the host oracle, with no
               nvcc run; then one 8-node pull and push, counters off and on,
               under ``torch.cuda.set_sync_debug_mode("error")``;
-8. report   — one JSON line listing every ported kernel with its launches on
+8. control  — the software control plane's closed loop: first
+              ``examples/quickstart_torch.py`` at its own size (bit-exact
+              to ``pull_pages_ref`` before and after a node fails); then a
+              plane over 8 memory nodes x 2,048 slots of granite-3-8b's KV
+              page (16 x 8 x 128 bf16; 512 MiB), 75% filled under the
+              striped, hashed and affinity policies, 8 x 256 requests,
+              budget 8, on the 8-node engine and on the loopback path over
+              8 logical nodes (``table_nodes``): a push and a pull with the
+              counters on (bit-exact to ``push_pages_ref`` /
+              ``pull_pages_ref``, the counters to the host oracle), the
+              counters folded and ``rate_limits``, ``select_channels`` and
+              ``affinity_migration`` run on them, node 3 failed and both
+              plans carried out on the pool by the gather and scatter
+              kernels, the program recompiled, a pull under the new table,
+              program and budgets bit-exact to the contents before the
+              failure, a failed ring direction and one more pull; every
+              datapath call under the sync debugger, no nvcc run.  Last a
+              ``Calibrator`` fit: 8-node pulls timed (CUDA events, median
+              of 5) under four programs at budgets 4, 8 and 16, the fitted
+              constants, residuals and channel pick printed with the card.
+              The phase's launches of the four bridge kernels must be
+              exactly what its shapes give;
+9. report   — one JSON line listing every ported kernel with its launches on
               the paths that ran it, the card's name and power limit, then
               the result line.
 
@@ -124,6 +146,9 @@ from repro_torch.config import (BridgeConfig, RunConfig,  # noqa: E402
                                 ShapeConfig)
 from repro_torch.core import bridge, kvbridge, steering  # noqa: E402
 from repro_torch.core import ref as tref  # noqa: E402
+from repro_torch.core.control_plane import (ControlPlane,  # noqa: E402
+                                            execute_plan, plan_rows)
+from repro_torch.core.perfmodel import Calibrator, route_features  # noqa: E402
 from repro_torch.core.memport import FREE, MemPortTable  # noqa: E402
 from repro_torch.core.topology import Topology  # noqa: E402
 from repro_torch.kernels import _build  # noqa: E402
@@ -1712,7 +1737,7 @@ def reduced_f32(dev="cuda") -> None:
 
 
 # ---------------------------------------------------------------------------
-# Phase 6: the sequence forward (prefill / scoring)
+# Phase 5: the sequence forward (prefill / scoring)
 # ---------------------------------------------------------------------------
 
 FORWARD = dict(batch=8, seq=1024, repeats=5, check_seq=200)
@@ -1848,7 +1873,7 @@ def forward_reduced_f32(report: dict, dev="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 7: STREAM through the bridge (the check of the paper's Figure 3)
+# Phase 6: STREAM through the bridge (the check of the paper's Figure 3)
 # ---------------------------------------------------------------------------
 
 def stream_bridge(report: dict, dev="cuda") -> dict:
@@ -1893,7 +1918,7 @@ def stream_bridge(report: dict, dev="cuda") -> dict:
 
 
 # ---------------------------------------------------------------------------
-# Phase 5: route programs swap at run time
+# Phase 7: route programs swap at run time
 # ---------------------------------------------------------------------------
 
 def program_variants(dev) -> dict:
@@ -2023,6 +2048,284 @@ def programs_swap(dev="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the software control plane's closed loop
+# ---------------------------------------------------------------------------
+
+CONTROL = dict(slots=2048, requests=256, budget=8, page=(16, 8, 128),
+               migrate=64, failed=3)
+CONTROL_PAGE_BYTES = 16 * 8 * 128 * 2      # granite-3-8b's bf16 KV page
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """Raise on any operation that synchronises with the card (the swaps of
+    the table, the program and the budgets must copy nothing back)."""
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+
+
+def quickstart(dev="cuda") -> dict:
+    """``examples/quickstart_torch.py`` at its own size on the card."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "quickstart_torch", ROOT / "examples" / "quickstart_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main(device=dev)
+
+
+def filled_plane(dev):
+    """A control plane over 8 memory nodes of 2,048 slots, 75% of them
+    filled: a quarter of the slots striped, a quarter hashed, and a quarter
+    of each node's homed there (4,096, 4,096 and 8 x 512 pages)."""
+    slots = CONTROL["slots"]
+    cp = ControlPlane(NODES, slots, NODES * slots, seed=0, device=dev)
+    regions = [cp.allocate(NODES * slots // 4, "kv-striped", "striped"),
+               cp.allocate(NODES * slots // 4, "kv-hashed", "hashed")]
+    affinity = [cp.allocate(slots // 4, f"kv-node{a}", "affinity",
+                            affinity=a) for a in range(NODES)]
+    return cp, regions, affinity
+
+
+def control_requests(regions, affinity) -> np.ndarray:
+    """i32[8, 256] distinct logical pages: node j asks for 128 pages homed
+    on node j + 1 (so node j dominates that home's traffic) and 128 of the
+    striped and hashed regions, shuffled."""
+    rng = np.random.default_rng(21)
+    half = CONTROL["requests"] // 2
+    shared = rng.choice(np.concatenate([r.page_ids for r in regions]),
+                        NODES * half, replace=False).reshape(NODES, half)
+    own = np.stack([rng.choice(affinity[(j + 1) % NODES].page_ids, half,
+                               replace=False) for j in range(NODES)])
+    want = np.concatenate([own, shared], 1)
+    return np.stack([rng.permutation(row) for row in want]).astype(np.int32)
+
+
+def control_loop(path: str, dev="cuda") -> dict:
+    """The closed loop on one path (the 8-node engine, or the loopback path
+    over 8 logical nodes): push and pull with the counters on, bit-exact to
+    the plain oracles and the counters to the host oracle; fold them and run
+    the policies; fail node 3 and carry out the migration and failure plans
+    with the gather and scatter kernels; recompile; pull again under the new
+    table, program and budgets; fail a ring direction, recompile and pull
+    again.  Every datapath call runs under the sync debugger."""
+    slots, budget = CONTROL["slots"], CONTROL["budget"]
+    cp, regions, affinity = filled_plane(dev)
+    cp.topology.pair_table(dev)       # uploaded once, before the swaps
+    kw = dict(num_nodes=NODES, budget=budget, topology=cp.topology)
+    if path == "loopback":
+        kw.update(num_nodes=1, table_nodes=NODES)
+    want_np = control_requests(regions, affinity)
+    want = torch.from_numpy(want_np).to(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(8)
+    pool = torch.randn((NODES * slots,) + CONTROL["page"], generator=gen,
+                       device=dev).bfloat16()
+    payload = torch.randn(tuple(want.shape) + CONTROL["page"], generator=gen,
+                          device=dev).bfloat16()
+    table, prog = cp.table(), cp.route_program()
+    before = pool.clone()
+    with no_host_sync():
+        _, push_t = bridge.push_pages(pool, want, payload, table,
+                                      program=prog, collect_telemetry=True,
+                                      **kw)
+        pages, pull_t = bridge.pull_pages(pool, want, table, program=prog,
+                                          collect_telemetry=True, **kw)
+    if not torch.equal(pool, tref.push_pages_ref(before, want, payload, table,
+                                                 slots, prog)):
+        raise AssertionError(f"control {path}: push != push_pages_ref")
+    del before
+    if not (torch.equal(pages, tref.pull_pages_ref(pool, want, table, slots,
+                                                   prog))
+            and torch.equal(pages, payload)):
+        raise AssertionError(f"control {path}: pull != pull_pages_ref")
+    table_c, prog_c = MemPortTable(table.home.cpu(), table.slot.cpu()), \
+        prog.to("cpu")
+    oracle = tref.expected_transfer_telemetry(
+        want_np, table_c, prog_c, num_nodes=NODES, budget=budget)
+    hold_transfer_counters(f"control {path} push", push_t, oracle)
+    hold_transfer_counters(f"control {path} pull", pull_t, oracle)
+
+    # measure -> aggregate -> the policies
+    agg = TelemetryAggregator(NODES, page_bytes=CONTROL_PAGE_BYTES)
+    agg.update(pull_t)
+    for node in range(NODES):
+        cp.record_step_time(node, 2.0 if node == 5 else 1.0)
+    budgets = cp.rate_limits(budget, telemetry=agg)
+    pick = cp.select_channels(budget, CONTROL_PAGE_BYTES, agg, program=prog)
+    migration = cp.affinity_migration(agg, min_share=0.5,
+                                      limit=CONTROL["migrate"])
+    moved_m = plan_rows(migration, slots, dev)
+    failure = cp.fail_node(CONTROL["failed"])
+    moved_f = plan_rows(failure, slots, dev)
+    table2, prog2 = cp.table(), cp.route_program()
+    ab = torch.from_numpy(budgets).to(dev)
+    swap = dict(active_budget=ab, overprovision=2, **kw)
+    with no_host_sync():
+        execute_plan(pool, moved_m)
+        execute_plan(pool, moved_f)
+        pages2, pull2_t = bridge.pull_pages(pool, want, table2, program=prog2,
+                                            collect_telemetry=True, **swap)
+    if not torch.equal(pages2, payload):
+        raise AssertionError(f"control {path}: the pull after the failure "
+                             "differs from the contents before it")
+    hold_transfer_counters(
+        f"control {path} pull after the failure", pull2_t,
+        tref.expected_transfer_telemetry(
+            want_np, MemPortTable(table2.home.cpu(), table2.slot.cpu()),
+            prog2.to("cpu"), num_nodes=NODES, budget=budget,
+            active_budget=budgets, overprovision=2))
+    cp.report_link_failure(+1)
+    prog3 = cp.route_program()
+    with no_host_sync():
+        pages3 = bridge.pull_pages(pool, want, table2, program=prog3, **swap)
+    if not torch.equal(pages3, payload):
+        raise AssertionError(f"control {path}: the pull around the failed "
+                             "link differs")
+    out = dict(pages=int(want.numel()), rate_limits=budgets.tolist(),
+               channels_pick=pick, migrated=len(migration),
+               rehomed=len(failure),
+               offsets_after_link_failure=prog3.offsets.cpu().tolist())
+    return out, cp, agg, pool, want, table2
+
+
+def fit_programs(dev) -> dict:
+    """(program, topology) the calibrator is fitted over."""
+    bi = steering.bidirectional_program(NODES, device=dev)
+    topo = Topology.boards(2, 4)
+    return {
+        "unidirectional": (steering.unidirectional_program(NODES, device=dev),
+                           None),
+        "bidirectional": (bi, None),
+        "pruned": (steering.pruned_program(bi, [1, 2, 6, 7]), None),
+        "hierarchical": (steering.hierarchical_program(topo, device=dev),
+                         topo),
+    }
+
+
+def calibrator_fit(cp, agg, pool, want, table, card: str,
+                   dev="cuda") -> tuple[dict, dict]:
+    """Time 8-node pulls (CUDA events, median of 5 after a warm-up) under
+    four programs at budgets 4, 8 and 16, and fit the Calibrator on their
+    route features with the measured per-round slot loads.  Returns the fit
+    and the pulls each (program, budget) ran."""
+    cal = Calibrator()
+    samples, calls = [], {}
+    programs = fit_programs(dev)
+    for name, (prog, topo) in programs.items():
+        _, telem = bridge.pull_pages(pool, want, table, num_nodes=NODES,
+                                     budget=8, program=prog, topology=topo,
+                                     collect_telemetry=True)
+        host_t = to_host(telem)
+        dist = host_t.slot_served.sum(0).astype(float)
+        intra = host_t.slot_intra.sum(0).astype(float)
+        for budget in (4, 8, 16):
+            rounds = steering.num_rounds(want.shape[1], budget)
+
+            def pull():
+                return bridge.pull_pages(pool, want, table, num_nodes=NODES,
+                                         budget=budget, program=prog)
+
+            pull()
+            times = []
+            for _ in range(5):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                pull()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end) * 1e3)
+            # a warm-up and 5 timed pulls; at budget 8 also the pull that
+            # measured the slot loads
+            calls[(name, budget)] = 6 + (budget == 8)
+            x = route_features(prog, CONTROL_PAGE_BYTES, budget, rounds=rounds,
+                               slot_pages=dist / rounds, topology=topo,
+                               slot_intra_pages=(None if topo is None
+                                                 else intra / rounds))
+            us = statistics.median(times)
+            cal.observe(x, us)
+            samples.append(dict(program=name, budget=budget, rounds=rounds,
+                                us=us, us_runs=times, features=x.tolist()))
+    for smp in samples:
+        smp["residual_us"] = smp["us"] - float(
+            cal.theta @ np.asarray(smp["features"]))
+    bi = programs["bidirectional"][0]
+    fit = dict(card=card, constants=cal.constants(),
+               hw=dataclasses.asdict(cal.hw()),
+               channels_pick_fitted=cp.select_channels(
+                   8, CONTROL_PAGE_BYTES, agg, program=bi, calibrator=cal),
+               channels_pick_static=cp.select_channels(
+                   8, CONTROL_PAGE_BYTES, agg, program=bi),
+               samples=samples)
+    print(f"control calibrator fit ({card}):", json.dumps(
+        {k: v for k, v in fit.items() if k != "samples"}))
+    for smp in samples:
+        print(f"control transfer {smp['program']} budget {smp['budget']} "
+              f"({smp['rounds']} rounds): {smp['us']:.1f} us median of 5 "
+              f"{[round(t, 1) for t in smp['us_runs']]}, residual "
+              f"{smp['residual_us']:.1f} us ({card})")
+    return fit, calls
+
+
+def control_launches(quick: dict, plans: dict, calls: dict) -> dict:
+    """The launches the control phase's shapes give: the quickstart's two
+    loopback pulls and its plan; on each path a push, three pulls (the last
+    two at overprovision 2) and its plans (one gather and one scatter
+    each); the calibrator's pulls."""
+    want = dict.fromkeys(KERNELS, 0)
+    rounds = steering.num_rounds(CONTROL["requests"], CONTROL["budget"])
+    moved = plans["8-node"] + plans["loopback"] + (quick["moved"] > 0)
+    want["gather_pages"] = 2 + (rounds + 2 * 2 * rounds) + 3 + moved
+    want["scatter_pages"] = 1 + moved
+    want["pull_commit"] = rounds + 2 * 2 * rounds
+    want["push_commit"] = rounds
+    for (_, budget), n in calls.items():
+        r = steering.num_rounds(CONTROL["requests"], budget)
+        want["gather_pages"] += n * r
+        want["pull_commit"] += n * r
+    return want
+
+
+def control_phase(report: dict, card: str, dev="cuda") -> dict:
+    """Phase 8: the quickstart, the closed loop on both paths at full
+    width, and the calibrator fit; nothing is built and every launch of the
+    bridge kernels is counted against the shapes."""
+    t0 = time.perf_counter()
+    runs_before = _build.nvcc_runs
+    torch.cuda.synchronize()
+    reset_launches()
+    quick = quickstart(dev)
+    loops, plans = {}, {}
+    for path in ("8-node", "loopback"):
+        out, cp, agg, pool, want, table = control_loop(path, dev)
+        loops[path] = out
+        plans[path] = (out["migrated"] > 0) + (out["rehomed"] > 0)
+        if path == "8-node":
+            kept = (cp, agg, pool, want, table)
+        else:
+            del pool
+    fit, calls = calibrator_fit(*kept, card=card, dev=dev)
+    del kept
+    torch.cuda.synchronize()
+    launches = hold_launches(report, "control", read_launches(),
+                             control_launches(quick, plans, calls), 1)
+    if _build.nvcc_runs != runs_before:
+        raise AssertionError("the control phase ran nvcc")
+    out = dict(quickstart=quick, loops=loops, launches={
+        k: v for k, v in launches.items() if v},
+        seconds=time.perf_counter() - t0)
+    print("control:", json.dumps(out))
+    print(f"control phase: {out['seconds']:.1f} s")
+    return dict(out, fit=fit)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -2088,6 +2391,7 @@ def main() -> int:
     stream_bridge(report)
     print(f"forward and stream phases: {time.perf_counter() - t_phase:.1f} s")
     programs_swap()
+    control_phase(report, card)
     print(f"smoke: {time.perf_counter() - t0:.1f} s after the build started")
 
     for name, k in KERNELS.items():

@@ -205,12 +205,12 @@ class BridgeConfig:
     channels: int = 1                 # pipelined round-engine depth (1=serial;
                                       # >1 overlaps request/data flits across
                                       # round chunks, bit-exact results)
-    fused: bool = True                # fused Pallas datapath: one kernel pair
-                                      # + one collective pair per round
-                                      # (bit-exact; False = unfused ppermute
-                                      # chain escape hatch)
+    fused: bool = True                # fused datapath: one kernel pair per
+                                      # round (False = the unfused engine,
+                                      # not ported: make_cache_ops raises)
     mem_axis: str = "data"            # mesh axis hosting the memory pool
-    # modelled hardware (perfmodel): paper values and TPU projection
+    # modelled hardware (perfmodel): the paper prototype's values; the
+    # card's projection is perfmodel.DEVICE_HW
     link_gbps: float = 10.0           # paper prototype: 10G Aurora
     rtt_cycles: int = 134             # paper: 134-cycle data-flit round trip
     clock_mhz: float = 167.5          # 134 cycles == 800ns  -> 167.5 MHz

@@ -9,7 +9,13 @@ runtime rate limiter ``active_budget`` spills what lies past
 * ``num_nodes == 1`` (loopback): the page moves through one
   :func:`~repro_torch.kernels.bridge_gather.gather_pages` or
   :func:`~repro_torch.kernels.bridge_gather.scatter_pages` launch at the
-  flat pool row ``home * pages_per_node + slot``.
+  flat pool row ``home * pages_per_node + slot``.  The pool may still model
+  ``table_nodes`` logical memory nodes, node-major
+  (``pages_per_node = pool rows // table_nodes``): request row i is logical
+  requester i, a route program for ``table_nodes`` nodes drops the requests
+  whose ring distance it does not wire (:func:`repro_torch.core.ref.
+  served_mask`), and the counters classify each row's requests on that
+  logical ring, as the reference's loopback path does.
 * ``num_nodes > 1``: the N memory nodes of the ring are an axis of one
   device, the pool ``[N * ppn, *page]`` node-major (the reference's global
   view of its sharded pool).  A :class:`~repro_torch.core.steering.
@@ -37,7 +43,7 @@ any of them between calls builds and synchronises nothing.
 lists with tensor ops for all requester rows at once; they launch none of
 the port's kernels.  The unfused, pipelined and bufferless engines and the
 "ladder" exchange lowering are not ported (the port runs the fused "a2a"
-engine), nor is the loopback path's ``table_nodes``.
+engine).
 """
 from __future__ import annotations
 
@@ -46,6 +52,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch.core import ref as _ref
 from repro_torch.core import steering
 from repro_torch.core.memport import FREE, MemPortTable
 from repro_torch.core.steering import RouteProgram
@@ -116,22 +123,30 @@ def _budget_vec(active_budget, num_nodes: int, budget: int,
 # One-device loopback path
 # ---------------------------------------------------------------------------
 
-def _loopback_rows(ids: torch.Tensor, table: MemPortTable, ppn: int,
+def _loopback_rows(ids: torch.Tensor, table: MemPortTable,
+                   program: Optional[RouteProgram], pool_rows: int, tn: int,
                    rounds: int, budget: int, active_budget):
     """Padded requests [..., rounds*budget] -> (flat pool rows i32[N*R],
-    the requests' home nodes)."""
+    the requests' home nodes); the pool is ``tn`` logical nodes of
+    ``pool_rows // tn`` slots, node-major."""
     home, slot = table.translate(ids.reshape(-1))
-    flat = torch.where(home >= 0, home * ppn + slot, FREE)
-    if active_budget is None:
-        return flat, home
-    # Rate-limiter parity with the N-device path: round r serves request
-    # indices [r*ab, (r+1)*ab), so anything past rounds*ab spills off the
-    # end of the round budget and is dropped.
-    ab = torch.as_tensor(active_budget, device=ids.device).reshape(-1)[0]
-    ab = ab.clamp(0, budget)
-    idx = torch.arange(ids.shape[-1], device=ids.device)
-    served = torch.broadcast_to(idx < rounds * ab, ids.shape).reshape(-1)
-    return torch.where(served, flat, FREE), home
+    flat = torch.where(home >= 0, home * (pool_rows // tn) + slot, FREE)
+    if active_budget is not None:
+        # Rate-limiter parity with the N-node path: round r serves request
+        # indices [r*ab, (r+1)*ab), so anything past rounds*ab spills off
+        # the end of the round budget and is dropped.
+        ab = torch.as_tensor(active_budget, device=ids.device).reshape(-1)[0]
+        ab = ab.clamp(0, budget)
+        idx = torch.arange(ids.shape[-1], device=ids.device)
+        served = torch.broadcast_to(idx < rounds * ab, ids.shape).reshape(-1)
+        flat = torch.where(served, flat, FREE)
+    if program is not None:
+        # Row i is logical requester i: a distance the program does not
+        # wire for it is dropped, as on the N-node path.
+        rows = ids.reshape(-1, ids.shape[-1])
+        flat = torch.where(_ref.served_mask(table, rows, program).reshape(-1),
+                           flat, FREE)
+    return flat, home
 
 
 def _pad_requests(ids: torch.Tensor, rounds: int, budget: int):
@@ -264,21 +279,26 @@ def _push_nodes(pool: torch.Tensor, dest: torch.Tensor, payload: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _check_nodes(pool_pages: torch.Tensor, ids: torch.Tensor,
-                 num_nodes: int, program) -> Optional[RouteProgram]:
-    """Shape checks; the route program of the N-node engine (None on the
-    loopback path, whose request rows may have any leading shape)."""
+                 num_nodes: int, program, table_nodes: int):
+    """Shape checks; (the route program, the logical node count of the
+    table).  On the loopback path, whose request rows may have any leading
+    shape, the program is checked against ``table_nodes`` and stays None
+    when none was given (nothing is masked then)."""
     if num_nodes == 1:
-        # The loopback path has no circuit slot: a program can wire nothing.
+        tn = table_nodes or 1
         if program is not None:
-            _resolve_program(program, 1, pool_pages.device)
-        return None
+            _resolve_program(program, tn, pool_pages.device)
+        return program, tn
+    if table_nodes and table_nodes != num_nodes:
+        raise ValueError(f"table has {table_nodes} nodes but the memory axis "
+                         f"has {num_nodes}")
     if num_nodes < 1 or ids.dim() != 2 or ids.shape[0] != num_nodes:
         raise ValueError(f"requests {list(ids.shape)} must be [num_nodes="
                          f"{num_nodes}, R]")
     if pool_pages.shape[0] % num_nodes:
         raise ValueError(f"pool of {pool_pages.shape[0]} pages does not "
                          f"split over {num_nodes} nodes")
-    return _resolve_program(program, num_nodes, pool_pages.device)
+    return _resolve_program(program, num_nodes, pool_pages.device), num_nodes
 
 
 def _telemetry_inputs(ids: torch.Tensor, tenant_ids, max_tenants: int):
@@ -291,15 +311,17 @@ def _telemetry_inputs(ids: torch.Tensor, tenant_ids, max_tenants: int):
 
 
 def _loopback_telemetry(ids: torch.Tensor, home: torch.Tensor,
-                        table: MemPortTable, topology: Optional[Topology],
-                        active_budget, budget: int, rounds: int, tenant_ids,
+                        table: MemPortTable, program: Optional[RouteProgram],
+                        tn: int, topology: Optional[Topology], active_budget,
+                        budget: int, rounds: int, tenant_ids,
                         max_tenants: int) -> _telemetry.BridgeTelemetry:
     """Counters of the loopback path: row i of the padded requests ``ids``
-    (``home``: their home nodes) is logical requester i on a one-node
-    ring; every row shares ``active_budget``'s first value, as the
-    loopback rate limiter does."""
-    _resolve_topology(topology, 1)
+    (``home``: their home nodes) is logical requester i on a ``tn``-node
+    ring, under ``program`` (default: full bidirectional coverage) and
+    ``topology`` for ``tn`` nodes; every row shares ``active_budget``'s
+    first value, as the loopback rate limiter does."""
     dev = ids.device
+    topo = _resolve_topology(topology, tn)
     if active_budget is None or not torch.is_tensor(active_budget):
         ab = torch.full((), budget if active_budget is None
                         else int(np.asarray(active_budget).reshape(-1)[0]),
@@ -310,10 +332,12 @@ def _loopback_telemetry(ids: torch.Tensor, home: torch.Tensor,
     if tenant_ids is not None:
         tenant_ids, _ = _pad_requests(tenant_ids.reshape(rows.shape[0], -1),
                                       rounds, budget)
+    ring = tn > 1
     return _telemetry.transfer_telemetry(
-        rows, table, None, ab,
-        my=torch.arange(rows.shape[0], device=dev), num_nodes=1,
-        budget=budget, rounds=rounds, pairs=None, tenant_ids=tenant_ids,
+        rows, table, _resolve_program(program, tn, dev) if ring else None, ab,
+        my=torch.arange(rows.shape[0], device=dev), num_nodes=tn,
+        budget=budget, rounds=rounds,
+        pairs=topo.pair_table(dev) if ring else None, tenant_ids=tenant_ids,
         max_tenants=max_tenants, home=home.reshape(rows.shape))
 
 
@@ -335,7 +359,7 @@ def pull_pages(pool_pages: torch.Tensor, want: torch.Tensor,
                table: MemPortTable, *, num_nodes: int = 1, budget: int = 8,
                channels: int = 1, overprovision: int = 1, active_budget=None,
                program: Optional[RouteProgram] = None,
-               collect_telemetry: bool = False,
+               table_nodes: int = 0, collect_telemetry: bool = False,
                topology: Optional[Topology] = None,
                tenant_ids: Optional[torch.Tensor] = None,
                max_tenants: int = 0):
@@ -356,12 +380,19 @@ def pull_pages(pool_pages: torch.Tensor, want: torch.Tensor,
         every request.  The loopback path applies its first value.
       program: runtime route program (default: full bidirectional
         coverage); requests whose circuit it does not wire come back as
-        zeros.
+        zeros.  On the loopback path it is one for ``table_nodes`` nodes,
+        and None masks nothing.
+      table_nodes: logical node count of the table (0 = ``num_nodes``).  On
+        the loopback path the pool may still model several logical memory
+        nodes, node-major; with ``num_nodes > 1`` it must equal
+        ``num_nodes``.
       collect_telemetry: also return the transfer's
         :class:`~repro_torch.telemetry.counters.BridgeTelemetry` (one row
-        per node; on the loopback path one row per request row).
+        per node; on the loopback path one row per request row, on a ring
+        of ``table_nodes`` logical nodes).
       topology: the static board + rack fabric the counters classify tiers
-        by (default: one flat board).
+        by (default: one flat board), of ``table_nodes`` nodes on the
+        loopback path.
       tenant_ids: tenant-id lane of ``want``'s shape, only observed by the
         counters (None = all tenant 0); ignored without
         ``collect_telemetry``.
@@ -373,7 +404,8 @@ def pull_pages(pool_pages: torch.Tensor, want: torch.Tensor,
     """
     channels = _resolve_channels(channels)
     max_tenants = _telemetry_inputs(want, tenant_ids, max_tenants)
-    program = _check_nodes(pool_pages, want, num_nodes, program)
+    program, tn = _check_nodes(pool_pages, want, num_nodes, program,
+                               table_nodes)
     r = want.shape[-1]
     rounds = steering.num_rounds(r, budget, overprovision)
     if num_nodes > 1:
@@ -391,16 +423,16 @@ def pull_pages(pool_pages: torch.Tensor, want: torch.Tensor,
                 max_tenants=max_tenants)
         return out
     padded, _ = _pad_requests(want, rounds, budget)
-    flat, home = _loopback_rows(padded, table, pool_pages.shape[0], rounds,
-                                budget, active_budget)
+    flat, home = _loopback_rows(padded, table, program, pool_pages.shape[0],
+                                tn, rounds, budget, active_budget)
     out = _bg.gather_pages(pool_pages, flat)
     out = out.view(tuple(padded.shape) + tuple(pool_pages.shape[1:]))
     # Trim the round padding on the request dim.
     out = out.narrow(want.dim() - 1, 0, r)
     if collect_telemetry:
-        return out, _loopback_telemetry(padded, home, table, topology,
-                                        active_budget, budget, rounds,
-                                        tenant_ids, max_tenants)
+        return out, _loopback_telemetry(padded, home, table, program, tn,
+                                        topology, active_budget, budget,
+                                        rounds, tenant_ids, max_tenants)
     return out
 
 
@@ -409,7 +441,7 @@ def push_pages(pool_pages: torch.Tensor, dest: torch.Tensor,
                num_nodes: int = 1, budget: int = 8, channels: int = 1,
                overprovision: int = 1, active_budget=None,
                program: Optional[RouteProgram] = None,
-               collect_telemetry: bool = False,
+               table_nodes: int = 0, collect_telemetry: bool = False,
                topology: Optional[Topology] = None,
                tenant_ids: Optional[torch.Tensor] = None,
                max_tenants: int = 0):
@@ -426,7 +458,8 @@ def push_pages(pool_pages: torch.Tensor, dest: torch.Tensor,
     """
     channels = _resolve_channels(channels)
     max_tenants = _telemetry_inputs(dest, tenant_ids, max_tenants)
-    program = _check_nodes(pool_pages, dest, num_nodes, program)
+    program, tn = _check_nodes(pool_pages, dest, num_nodes, program,
+                               table_nodes)
     r = dest.shape[-1]
     rounds = steering.num_rounds(r, budget, overprovision)
     if tuple(payload.shape) != tuple(dest.shape) + tuple(pool_pages.shape[1:]):
@@ -451,12 +484,12 @@ def push_pages(pool_pages: torch.Tensor, dest: torch.Tensor,
         zeros = payload.new_zeros(payload.shape[:1] + (pad,)
                                   + payload.shape[2:])
         payload = torch.cat([payload, zeros], 1)
-    flat, home = _loopback_rows(padded, table, pool_pages.shape[0], rounds,
-                                budget, active_budget)
+    flat, home = _loopback_rows(padded, table, program, pool_pages.shape[0],
+                                tn, rounds, budget, active_budget)
     flat_pay = payload.reshape((-1,) + tuple(payload.shape[2:]))
     out = _bg.scatter_pages(pool_pages, flat, flat_pay.contiguous())
     if collect_telemetry:
-        return out, _loopback_telemetry(padded, home, table, topology,
-                                        active_budget, budget, rounds,
-                                        tenant_ids, max_tenants)
+        return out, _loopback_telemetry(padded, home, table, program, tn,
+                                        topology, active_budget, budget,
+                                        rounds, tenant_ids, max_tenants)
     return out

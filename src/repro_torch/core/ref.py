@@ -1,9 +1,11 @@
 """Oracles for the bridge transfer engine (no engine code).
 
-The port's copy of the parts of ``repro.core.ref`` that the in-band
-telemetry needs.  :func:`flat_index` and :func:`served_mask` compute, by
-direct lookup through the memport table, where a request lands and whether
-its circuit is wired; :func:`expected_transfer_telemetry` is the oracle of
+The port's copy of ``repro.core.ref``'s non-pipelined oracles.
+:func:`flat_index` and :func:`served_mask` compute, by direct lookup
+through the memport table, where a request lands and whether its circuit
+is wired; :func:`pull_pages_ref` and :func:`push_pages_ref` move the pages
+by one gather or one indexed write over the global pool (plain tensor code
+on any device); :func:`expected_transfer_telemetry` is the oracle of
 the measurement plane: a per-request walk in plain Python and numpy,
 nothing like the engine's masked sums, that the ``collect_telemetry``
 counters of :func:`repro_torch.core.bridge.pull_pages` / ``push_pages``
@@ -19,14 +21,8 @@ import torch
 
 from repro_torch.core import steering
 from repro_torch.core.memport import MemPortTable
-from repro_torch.core.steering import RouteProgram
+from repro_torch.core.steering import RouteProgram, to_numpy
 from repro_torch.core.topology import Topology
-
-
-def _host(x) -> np.ndarray:
-    if torch.is_tensor(x):
-        return x.detach().cpu().numpy()
-    return np.asarray(x)
 
 
 def flat_index(table: MemPortTable, page_ids: torch.Tensor,
@@ -61,6 +57,55 @@ def served_mask(table: MemPortTable, ids: torch.Tensor,
     return torch.where(home >= 0, (dist == 0) | wired, False)
 
 
+def pull_pages_ref(pool_pages: torch.Tensor, want: torch.Tensor,
+                   table: MemPortTable, pages_per_node: int,
+                   program: Optional[RouteProgram] = None) -> torch.Tensor:
+    """Oracle for :func:`repro_torch.core.bridge.pull_pages`.
+
+    Args:
+      pool_pages: [num_nodes * pages_per_node, *page_shape] (global view).
+      want: [num_nodes, R] logical ids (FREE-padded).
+      program: optional route program; requests whose ring distance has no
+        wired circuit come back as zeros.
+    Returns: [num_nodes, R, *page_shape].
+    """
+    flat = flat_index(table, want.reshape(-1), pages_per_node)
+    flat = torch.where(served_mask(table, want, program).reshape(-1), flat,
+                       -1)
+    valid = flat >= 0
+    # A row past the pool reads its last row, as JAX's clamped gather does.
+    out = pool_pages[torch.where(valid, flat, 0).clamp(
+        max=pool_pages.shape[0] - 1).long()]
+    out = torch.where(valid.view((-1,) + (1,) * (out.dim() - 1)), out,
+                      torch.zeros((), dtype=out.dtype, device=out.device))
+    return out.view(tuple(want.shape) + tuple(pool_pages.shape[1:]))
+
+
+def push_pages_ref(pool_pages: torch.Tensor, dest: torch.Tensor,
+                   payload: torch.Tensor, table: MemPortTable,
+                   pages_per_node: int,
+                   program: Optional[RouteProgram] = None) -> torch.Tensor:
+    """Oracle for :func:`repro_torch.core.bridge.push_pages`: a new pool
+    with every served write applied; among writes to one page the later one
+    (in ``dest``'s row-major order) wins."""
+    flat = flat_index(table, dest.reshape(-1), pages_per_node)
+    flat = torch.where(served_mask(table, dest, program).reshape(-1), flat,
+                       -1)
+    rows = pool_pages.shape[0]
+    flat = torch.where((flat >= 0) & (flat < rows), flat, rows).long()
+    # Keep each page's last write only: a write is dropped when a later one
+    # lands on the same row.
+    pos = torch.arange(flat.shape[0], device=flat.device)
+    last = torch.full((rows + 1,), -1, dtype=torch.long, device=flat.device)
+    last.scatter_reduce_(0, flat, pos, reduce="amax")
+    keep = (flat < rows) & (last[flat] == pos)
+    pay = payload.reshape((-1,) + tuple(payload.shape[2:])).to(
+        pool_pages.dtype)
+    out = torch.cat([pool_pages, pool_pages[:1]])
+    out.index_copy_(0, torch.where(keep, flat, rows), pay)
+    return out[:rows]
+
+
 def rate_limit_mask(num_requests: int, budget: int, active_budget,
                     overprovision: int = 1) -> np.ndarray:
     """bool[num_requests]: which request indices the rate limiter serves.
@@ -69,7 +114,7 @@ def rate_limit_mask(num_requests: int, budget: int, active_budget,
     ``rounds * ab`` spills off the (overprovisioned) round budget.
     """
     rounds = steering.num_rounds(num_requests, budget, overprovision)
-    ab = int(np.clip(_host(active_budget).reshape(-1)[0], 0, budget))
+    ab = int(np.clip(to_numpy(active_budget).reshape(-1)[0], 0, budget))
     return np.arange(num_requests) < rounds * ab
 
 
@@ -100,7 +145,7 @@ def expected_transfer_telemetry(ids, table: MemPortTable,
                                                 DEFAULT_MAX_TENANTS,
                                                 num_epoch_bins)
 
-    ids = _host(ids)
+    ids = to_numpy(ids)
     rows, r = ids.shape
     n = num_nodes
     if max_tenants <= 0:
@@ -108,20 +153,20 @@ def expected_transfer_telemetry(ids, table: MemPortTable,
     if tenant_ids is None:
         tenant = np.zeros((rows, r), np.int64)
     else:
-        tenant = _host(tenant_ids).astype(np.int64).reshape(rows, r)
+        tenant = to_numpy(tenant_ids).astype(np.int64).reshape(rows, r)
     tenant = np.clip(tenant, 0, max_tenants - 1)
     rounds = steering.num_rounds(r, budget, overprovision)
     ab = np.broadcast_to(
-        _host(budget if active_budget is None else active_budget)
+        to_numpy(budget if active_budget is None else active_budget)
         .astype(np.int64).reshape(-1), (rows,))
     if program is None:
         program = steering.bidirectional_program(n, device="cpu")
     if topology is None:
         topology = Topology.flat(n)
-    live = _host(program.live)
-    off = _host(program.offsets)
-    rank_epoch = _host(program.rank_epoch)
-    home_col = _host(table.home)
+    live = to_numpy(program.live)
+    off = to_numpy(program.offsets)
+    rank_epoch = to_numpy(program.rank_epoch)
+    home_col = to_numpy(table.home)
 
     s = max(n - 1, 0)
     e = num_epoch_bins(n)

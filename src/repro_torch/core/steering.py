@@ -63,8 +63,12 @@ def default_route_schedule(num_nodes: int) -> list[int]:
 # Route programs (runtime circuit schedules)
 # ---------------------------------------------------------------------------
 
-def _host(t: torch.Tensor) -> np.ndarray:
-    return t.detach().cpu().numpy()
+def to_numpy(x) -> np.ndarray:
+    """A tensor on any device (copied to the host), or an array, as a
+    numpy array."""
+    if torch.is_tensor(x):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
 
 
 @dataclass(frozen=True)
@@ -111,32 +115,32 @@ class RouteProgram:
     def num_epochs(self) -> int:
         """Circuit epochs the program occupies (max served epoch + 1)."""
         served = self.rank_served()
-        re = _host(self.rank_epoch)
+        re = to_numpy(self.rank_epoch)
         return int(re[served].max()) + 1 if served.any() else 0
 
     def live_distances(self) -> np.ndarray:
         """Ring distances with a wired circuit (sorted)."""
-        return np.nonzero(_host(self.live))[0] + 1
+        return np.nonzero(to_numpy(self.live))[0] + 1
 
     def hops(self) -> np.ndarray:
         """Flat-ring hop count per slot (0 on dead slots)."""
-        return np.abs(_host(self.offsets))
+        return np.abs(to_numpy(self.offsets))
 
     def rank_served(self) -> np.ndarray:
         """bool[N-1, N]: does slot k carry requester rank r's traffic."""
-        return _host(self.live)[:, None] & (_host(self.rank_epoch) >= 0)
+        return to_numpy(self.live)[:, None] & (to_numpy(self.rank_epoch) >= 0)
 
     def validate(self) -> None:
         """Raise on incongruent offsets or an inconsistent group mask."""
         n = self.num_nodes
-        off, lv = _host(self.offsets), _host(self.live)
+        off, lv = to_numpy(self.offsets), to_numpy(self.live)
         d = np.arange(1, n)
         bad = lv & ((off % n) != d)
         if bad.any():
             raise ValueError(
                 f"slots {np.nonzero(bad)[0].tolist()} drive offsets "
                 f"{off[bad].tolist()} incongruent with their distances")
-        re = _host(self.rank_epoch)
+        re = to_numpy(self.rank_epoch)
         if re.shape != (n - 1, n):
             raise ValueError(f"rank_epoch has shape {re.shape}; expected "
                              f"{(n - 1, n)}")
@@ -210,13 +214,13 @@ def pruned_program(base: RouteProgram, live_distances) -> RouteProgram:
         if not 0 < d < n:
             raise ValueError(f"distance {d} out of range for {n} nodes")
         keep[d - 1] = True
-    re = _host(base.rank_epoch)
+    re = to_numpy(base.rank_epoch)
     flat = (re == re[:, :1]).all()  # every row uniform = no group mask
     if not flat:
         return masked_ranks_program(base, np.broadcast_to(keep[:, None],
                                                           re.shape))
-    off = _host(base.offsets).copy()
-    live = _host(base.live) & keep
+    off = to_numpy(base.offsets).copy()
+    live = to_numpy(base.live) & keep
     off = np.where(live, off, 0)
     epoch = np.full((n - 1,), -1, np.int64)
     for sign in (1, -1):
@@ -413,13 +417,13 @@ def masked_ranks_program(base: RouteProgram, rank_live) -> RouteProgram:
     """
     rank_live = np.asarray(rank_live, bool)
     # int64: the int64 max sentinel below would wrap in int32.
-    re = _host(base.rank_epoch).astype(np.int64)
+    re = to_numpy(base.rank_epoch).astype(np.int64)
     if rank_live.shape != re.shape:
         raise ValueError(f"rank_live has shape {rank_live.shape}; program "
                          f"has {re.shape}")
     re = np.where(rank_live, re, -1)
-    live = _host(base.live) & (re >= 0).any(1)
-    off = np.where(live, _host(base.offsets), 0)
+    live = to_numpy(base.live) & (re >= 0).any(1)
+    off = np.where(live, to_numpy(base.offsets), 0)
     epoch = np.where(live,
                      np.where(re >= 0, re, np.iinfo(np.int64).max).min(1), -1)
     return _program(off, epoch, live, re, device=base.device)
@@ -437,8 +441,8 @@ def validate_hierarchical(program: RouteProgram, topo: Topology) -> None:
     if topo.num_nodes != n:
         raise ValueError(f"topology has {topo.num_nodes} nodes; program has "
                          f"{n}")
-    re = _host(program.rank_epoch)
-    off = _host(program.offsets)
+    re = to_numpy(program.rank_epoch)
+    off = to_numpy(program.offsets)
     served = program.rank_served()
     for e in np.unique(re[served]):
         inter_at_e, intra_cw, intra_ccw = [], [], []

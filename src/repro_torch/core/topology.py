@@ -168,7 +168,7 @@ class Topology:
     def tables(self, device="cuda") -> TopoTables:
         """The :class:`TopoTables` on ``device``, made on the first call for
         that device and kept (a Topology is static)."""
-        key = str(torch.device(device))
+        key = _device_key(device)
         if key not in self._tables:
             def i32(a):
                 return torch.tensor(np.asarray(a).astype(np.int32),
@@ -183,7 +183,7 @@ class Topology:
         and home h, index 0 when the pair's slot is driven clockwise and 1
         otherwise, from :func:`pair_hops_device` on :meth:`tables`; made on
         the first call for ``device`` and kept."""
-        key = ("pairs", str(torch.device(device)))
+        key = ("pairs", _device_key(device))
         if key not in self._tables:
             n = self.num_nodes
             req = torch.arange(n, device=device)[:, None].expand(n, n)
@@ -203,6 +203,15 @@ class Topology:
                 f"board(s) {self.group_sizes.tolist()}; board "
                 f"{self.board_hop_us}us/{self.board_link_gbps}GB/s, rack "
                 f"{self.rack_hop_us}us/{self.rack_link_gbps}GB/s")
+
+
+def _device_key(device) -> str:
+    """One name per device: ``"cuda"`` and the tensors' ``cuda:0`` (the
+    current card) share their tables."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return str(dev)
 
 
 def pair_hops_device(tables: TopoTables, num_groups: int, my, home, sign):

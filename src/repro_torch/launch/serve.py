@@ -10,9 +10,9 @@ placement (``local``, ``ring``, ``bridge_pull``, ``bridge_push``);
 ``--num-nodes N`` stripes the KV pool over N memory nodes of the bridge's
 ring (a node axis of the one device) and ``--channels`` sets the virtual
 channels of its rounds.  ``--telemetry`` collects the bridge's in-band
-counters and prints their aggregate; ``--tenants K`` serves the batch as K
-tenants (sequence b belongs to tenant b % K), whose pages the counters
-attribute.
+counters and prints their aggregate and the control plane's channel pick
+from it; ``--tenants K`` serves the batch as K tenants (sequence b belongs
+to tenant b % K), whose pages the counters attribute.
 """
 from __future__ import annotations
 
@@ -23,6 +23,7 @@ import torch
 
 from repro_torch import configs
 from repro_torch.config import BridgeConfig, RunConfig, ShapeConfig
+from repro_torch.core.control_plane import ControlPlane
 from repro_torch.models import transformer
 from repro_torch.models.layers import torch_dtype
 from repro_torch.obs.clock import MonotonicClock
@@ -108,6 +109,15 @@ def main(argv=None) -> None:
             for t in range(args.tenants):
                 print(f"tenant {t}: served={served[t]} pages "
                       f"spilled={spilled[t]}")
+        # The closed loop's pipeline-depth pick from the measured occupancy
+        # (what --channels should be next run).
+        cp = ControlPlane(telem.num_nodes, 1, 1, device=device)
+        page_bytes = (args.page_tokens * cfg.num_kv_heads * cfg.head_dim
+                      * torch_dtype(cfg.dtype).itemsize)
+        pick = cp.select_channels(run.bridge.epoch_budget, page_bytes,
+                                  telemetry=agg)
+        print(f"control plane channels pick: {pick} "
+              f"(running with {args.channels})")
 
 
 if __name__ == "__main__":

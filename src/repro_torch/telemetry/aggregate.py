@@ -196,8 +196,9 @@ class TelemetryAggregator:
         """EWMA intra-board pages per step at each ring distance, [N-1].
 
         ``distance_pages() - distance_intra_pages()`` is the board-crossing
-        share — the split :func:`repro.core.perfmodel.predict_round_latency_us`
-        consumes as ``slot_intra_pages``.
+        share — the split
+        :func:`repro_torch.core.perfmodel.predict_round_latency_us` consumes
+        as ``slot_intra_pages``.
         """
         return self.dist_intra.copy()
 

@@ -183,7 +183,8 @@ def transfer_telemetry(ids: torch.Tensor, table: MemPortTable,
         (FREE entries and any round padding count for nothing).
       active_budget: live lanes per round, one value for every row or one
         per row ([rows]), clipped to ``[0, budget]``.
-      my: i64[rows] the rows' ring ranks.
+      my: i64[rows] the rows' ring ranks (a loopback row past the last
+        rank reads the last rank's program and pair tables).
       rounds: the round count the transfer ran.
       pairs: the topology's :meth:`~repro_torch.core.topology.Topology.
         pair_table`, which classifies each pair's tier (unused, and may be
@@ -229,8 +230,11 @@ def transfer_telemetry(ids: torch.Tensor, table: MemPortTable,
         slot = (dist - 1).clamp(0, nslots - 1)
         remote = cand & (dist > 0)
         # The serve condition mirrors the datapath: the slot must be live
-        # AND the program's group mask must wire it for this requester.
-        epoch_of = program.rank_epoch[:, my].T.gather(1, slot)  # [rows, L]
+        # AND the program's group mask must wire it for this requester.  A
+        # loopback row past the ring's last rank reads that rank's tables,
+        # as the reference's clamped gathers do.
+        rank = my.clamp(max=num_nodes - 1)
+        epoch_of = program.rank_epoch[:, rank].T.gather(1, slot)  # [rows, L]
         slot_wired = program.live[slot] & (epoch_of >= 0)
         wired = remote & slot_wired
         prune = remote & ~slot_wired
@@ -250,7 +254,7 @@ def transfer_telemetry(ids: torch.Tensor, table: MemPortTable,
             torch.where(wired & (offset < 0), at["epoch_ccw"] + ep, dump))
         # Per-tier occupancy under the topology's path realization.
         intra, board_hops, rack_hops = pairs[
-            (offset <= 0).long(), my[:, None],
+            (offset <= 0).long(), rank[:, None],
             home.clamp(0, nslots).long()].unbind(-1)
         by_tenant = torch.where(
             served, at["tenant_served"] + tenant,

@@ -5,6 +5,8 @@ without a card they skip.  Run them on a GPU machine with
 
     PYTHONPATH=src python -m pytest -m gpu tests/test_torch_kernels_gpu.py
 """
+import dataclasses
+
 import pytest
 import torch
 
@@ -687,3 +689,46 @@ def test_decode_kernels_replay_in_a_cuda_graph(cuda):
     want = pa.paged_attention_plain(*paged, max_pages=mp)
     torch.testing.assert_close(out.float(), want.float(), rtol=0, atol=3e-2)
     assert not out[3].any() and out[1].any()
+
+
+@pytest.mark.gpu
+def test_loopback_table_nodes_pull_matches_cpu(cuda):
+    """A loopback pull and push over 4 logical memory nodes (a control
+    plane's table, its hierarchical program, a throttled budget, counters
+    on) give on the card what they give on the CPU: one gather and one
+    scatter launch."""
+    from repro_torch.core import bridge
+    from repro_torch.core.control_plane import ControlPlane
+    from repro_torch.core.topology import Topology
+    from repro_torch.telemetry.aggregate import to_host
+
+    topo = Topology.boards(2, 2)
+    results = {}
+    for dev in ("cpu", cuda):
+        cp = ControlPlane(4, 16, 48, seed=3, topology=topo, device=dev)
+        for policy in ("striped", "hashed", "affinity"):
+            cp.allocate(12, policy=policy, affinity=2)
+        gen = torch.Generator(device="cpu")
+        gen.manual_seed(9)
+        pool = torch.randn((64, 16, 8, 128), generator=gen).bfloat16().to(dev)
+        want = torch.randint(-1, 48, (4, 20), generator=gen,
+                             dtype=torch.int32).to(dev)
+        payload = torch.randn((4, 20, 16, 8, 128),
+                              generator=gen).bfloat16().to(dev)
+        kw = dict(budget=8, table_nodes=4, program=cp.route_program(),
+                  active_budget=torch.tensor([2], device=dev), topology=topo,
+                  collect_telemetry=True)
+        before = (bg.gather_pages.launches, bg.scatter_pages.launches)
+        pages, pull_t = bridge.pull_pages(pool, want, cp.table(), **kw)
+        pool, push_t = bridge.push_pages(pool, want, payload, cp.table(),
+                                         **kw)
+        launched = (bg.gather_pages.launches - before[0],
+                    bg.scatter_pages.launches - before[1])
+        results[str(dev)] = (pages.cpu(), pool.cpu(), to_host(pull_t),
+                             to_host(push_t), launched)
+    cpu, card = results["cpu"], results[str(cuda)]
+    assert card[4] == (1, 1)
+    assert torch.equal(card[0], cpu[0]) and torch.equal(card[1], cpu[1])
+    for got, want in ((card[2], cpu[2]), (card[3], cpu[3])):
+        for f in dataclasses.fields(got):
+            assert (getattr(got, f.name) == getattr(want, f.name)).all(), f
