@@ -46,7 +46,10 @@ prints no result):
               random prompt, then decodes greedily; ``bridge_pull`` on one
               memory node and on 8 (the pool striped over a node axis, the
               default bidirectional route program) is fed the same tokens
-              and its logits are held to local's.  Each path's kernels must
+              and its logits are held to local's (the 8-node pull on all
+              40 layers; every other bridge run of this phase, planted
+              faults included, on the first 10, against local on those
+              layers over the same tokens).  Each path's kernels must
               launch exactly the counts its shapes give, counted from 0 just
               before the path runs; a profiled step gives the fold's
               launches one by one (mean, median, longest).  The kernel
@@ -106,7 +109,45 @@ prints no result):
               constants, residuals and channel pick printed with the card.
               The phase's launches of the four bridge kernels must be
               exactly what its shapes give;
-9. report   — one JSON line listing every ported kernel with its launches on
+9. serve    — request-level serving through the launcher's traffic path
+              (``launch/serve.py`` ``_traffic_mode``): full-width
+              granite-3-8b, two tenants (chat, interactive, share 3;
+              crawl, batch, share 1), 8 slots, max_len 256, page_tokens 16,
+              the QoS policy, 12 arrival steps of a seeded stream at 0.5
+              requests a step a tenant, under ``local`` and ``bridge_pull``
+              on 8 memory nodes.  Every request retires or is shed with a
+              reason, both tenants retire, every leased page comes back;
+              four retired requests of 48 tokens or more (3 pages: each
+              pulls flushed pages for 16 steps or more), both tenants and a
+              slot that an earlier request had left among them, decoded
+              alone in their slot of a fresh engine give the same tokens
+              bit for bit, and ``flight.why`` explains each; the launches
+              equal the
+              serve step's shapes times the decode steps (the orchestrator
+              and batcher launch none); an engine step syncs with the host
+              once (the emitted tokens) and the orchestrator's outputs
+              upload without a sync; the Chrome trace and the debug bundle
+              are written and read back.  Prints tokens/s, per-QoS p50/p99
+              latency (µs and steps), TTFT, the host µs of
+              ``batcher.control()`` and the ms of a decode step;
+10. dense   — gemma3-12b, h2o-danube-3-4b and starcoder2-7b at full width
+              and depth in bf16, weights from seed 0, one at a time: the
+              forward at B 2 x S 1024 (median of 3 after a warm-up, one
+              bf16 flash launch a layer), held to teacher-forced ``local``
+              decode over 64 tokens within 5e-2 of the largest logit (a
+              planted mask fault must break it); the bf16 flash kernel at
+              the config's heads within 2e-2 of its plain version at
+              B 2 x S 1024 and, with a window, at S = window + 1,024, where
+              the window hides keys; then a 40-token prompt and 16 greedy
+              steps under ``local``, and ``bridge_pull`` and
+              ``bridge_push`` on 8 nodes fed local's tokens, logits within
+              5e-2 (bit-identical where no layer reaches the bridge),
+              launches what the bridge layers give (8 of 48, 0 of 24, 32
+              of 32); the fold within 1e-5 of its plain version on the last
+              round the pull pulled, at the config's heads (16/8 of 256,
+              36/4 of 128); and a pull that loses a page must break the
+              5e-2 limit;
+11. report  — one JSON line listing every ported kernel with its launches on
               the paths that ran it, the card's name and power limit, then
               the result line.
 
@@ -132,6 +173,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 from dataclasses import fields
 from pathlib import Path
 
@@ -142,8 +184,8 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from repro_torch import configs  # noqa: E402
-from repro_torch.config import (BridgeConfig, RunConfig,  # noqa: E402
-                                ShapeConfig)
+from repro_torch.config import (SWA_ATTN, BridgeConfig,  # noqa: E402
+                                RunConfig, ShapeConfig)
 from repro_torch.core import bridge, kvbridge, steering  # noqa: E402
 from repro_torch.core import ref as tref  # noqa: E402
 from repro_torch.core.control_plane import (ControlPlane,  # noqa: E402
@@ -1152,6 +1194,16 @@ def worst_rel_diff(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((diff / want.float().abs().amax(dim=(1, 2))).max())
 
 
+def device_events(prof) -> list:
+    """(name, us) of every operation the profiler saw on the card, read
+    from its raw events.  ``key_averages`` would first build the tree of
+    every host event: slow for a decode step of 100,000 launches."""
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+
+
 def profile_step(label: str, run_step) -> dict:
     """Profile one decode step: wall time, summed kernel time on the card,
     the port's kernels' launches and mean times, and the top kernels."""
@@ -1163,30 +1215,34 @@ def profile_step(label: str, run_step) -> dict:
         run_step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    device = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    ours = {k: [(e.count, e.self_device_time_total / 1e3 / e.count)
-                for e in kernels if k in e.key]
+    t0 = time.perf_counter()
+    kernels = device_events(prof)
+    by_name = {}
+    for name, us in kernels:
+        count_us = by_name.setdefault(name, [0, 0.0])
+        count_us[0] += 1
+        count_us[1] += us
+    device = sum(us for _, us in kernels) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    ours = {k: [(n, us / 1e3 / n) for name, (n, us) in by_name.items()
+                if k in name]
             for k in ("gather_rows", "pull_commit_rows", "push_commit_rows",
                       "scatter_rows", "stream_kernel", fa.TF32X3,
                       fa.WGMMA)}
     # the fold's launches one by one: a few live rounds among many all-FREE
     # ones, told apart by the median and the longest beside the mean
-    fold_us = sorted(e.self_device_time_total for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and "stream_kernel" in e.name)
+    fold_us = sorted(us for name, us in kernels if "stream_kernel" in name)
     out = dict(wall_ms=wall, device_ms=device,
                device_busy_share=device / wall if device else None,
-               kernel_launches=sum(e.count for e in kernels),
-               top_kernels=[(e.key[:60], e.count,
-                             e.self_device_time_total / 1e3) for e in top],
+               kernel_launches=len(kernels),
+               top_kernels=[(name[:60], n, us / 1e3)
+                            for name, (n, us) in top],
                port_kernels_count_and_mean_device_ms=ours)
     if fold_us:
         out["stream_kernel_us"] = dict(
             launches=len(fold_us), mean=statistics.fmean(fold_us),
             median=statistics.median(fold_us), max=fold_us[-1])
+    out["read_s"] = time.perf_counter() - t0
     print(f"profile {label}:", json.dumps(out))
     return out
 
@@ -1233,8 +1289,18 @@ def hold_launches(report: dict, label: str, counts: dict, want: dict,
     return per_step
 
 
+# the planted-fault runs stop after step 18, the second step that reads a
+# flushed page (page 0, flushed when the 16th token is in; cut from 24
+# steps so the whole smoke keeps inside its limit)
 FULL = dict(batch=8, max_len=1024, page_tokens=16, steps=48, prompt=40,
-            fault_steps=24)
+            fault_steps=18)
+# Every bridge run of phase 3 but the 8-node pull (the 1-node pull, the
+# planted faults, the pushes and the counters-on runs) takes the first 10
+# of granite-3-8b's 40 layers, at full width and for all its steps, held
+# to local on those layers over the same tokens: each layer runs the same
+# rounds, so depth adds time and no round kind (cut from 40 layers so the
+# whole smoke keeps well inside its limit on a slow host).
+SHALLOW = 10
 
 
 def full_params(dev="cuda"):
@@ -1254,6 +1320,13 @@ def full_params(dev="cuda"):
     return cfg, params, gen
 
 
+def shallow(cfg, params):
+    """The first ``SHALLOW`` layers of the model, at full width: the
+    config and a view of the weights."""
+    return (dataclasses.replace(cfg, num_layers=SHALLOW),
+            dict(params, layers=params["layers"][:SHALLOW]))
+
+
 def full_width(report: dict, cfg, params, gen, dev="cuda") -> dict:
     batch, max_len, page_tokens, steps = (FULL[k] for k in (
         "batch", "max_len", "page_tokens", "steps"))
@@ -1263,19 +1336,26 @@ def full_width(report: dict, cfg, params, gen, dev="cuda") -> dict:
     shape = (batch, max_len, page_tokens)
     inputs, local_logits, local_ms, local_next, local_state = decode(
         cfg, params, "local", *shape, steps, prompt, dev=dev)
-    off_logits = {}
+    # what the shallow paths are held to: local over the same tokens
+    cfg_s, params_s = shallow(cfg, params)
+    _, local_s, _, _, _ = decode(cfg_s, params_s, "local", *shape, steps,
+                                 inputs, dev=dev)
+    depth = {"1-node": (cfg_s, params_s, local_s),
+             f"{NODES}-node": (cfg, params, local_logits)}
+    off_logits, off_ms = {}, {}
     out = dict(local_ms_per_step=statistics.median(local_ms[1:]),
                local_first_step_ms=local_ms[0])
     profile_step("local", local_next)
     del local_next
     for path, n in PATHS.items():
+        p_cfg, p_params, p_local = depth[path]
         reset_launches()
         _, pull_logits, pull_ms, pull_next, pull_state = decode(
-            cfg, params, "bridge_pull", *shape, steps, inputs, num_nodes=n,
-            dev=dev)
+            p_cfg, p_params, "bridge_pull", *shape, steps, inputs,
+            num_nodes=n, dev=dev)
         counts = read_launches()
         want = expected_launches(n, batch, -(-max_len // page_tokens), 8,
-                                 cfg.num_layers)
+                                 p_cfg.num_layers)
         for name, k in KERNELS.items():
             per_step = counts[name] / steps
             report[name]["launches"] += counts[name]
@@ -1288,28 +1368,28 @@ def full_width(report: dict, cfg, params, gen, dev="cuda") -> dict:
             if per_step != want[name]:
                 raise AssertionError(f"{path}: {name} launched {per_step} "
                                      f"times a step, expected {want[name]}")
-        if not (torch.isfinite(local_logits).all()
+        if not (torch.isfinite(p_local).all()
                 and torch.isfinite(pull_logits).all()):
             raise AssertionError(f"non-finite logits at full width ({path})")
-        worst = worst_rel_diff(pull_logits, local_logits)
+        worst = worst_rel_diff(pull_logits, p_local)
         if worst > FULL_LOGIT_REL_TOL:
             raise AssertionError(f"{path} bridge_pull logits differ from "
                                  f"local by {worst:.3g} of the largest logit")
-        agree = float((pull_logits.argmax(-1) == local_logits.argmax(-1))
+        agree = float((pull_logits.argmax(-1) == p_local.argmax(-1))
                       .float().mean())
         faults = {}
         with planted_fault():
             _, fault_logits, _, _, _ = decode(
-                cfg, params, "bridge_pull", *shape, fault_steps, inputs,
+                cfg_s, params_s, "bridge_pull", *shape, fault_steps, inputs,
                 num_nodes=n, dev=dev)
         faults["lost_lane"] = worst_rel_diff(fault_logits,
-                                             local_logits[:fault_steps])
+                                             local_s[:fault_steps])
         if n > 1:
             _, fault_logits, _, _, _ = decode(
-                cfg, params, "bridge_pull", *shape, fault_steps, inputs,
+                cfg_s, params_s, "bridge_pull", *shape, fault_steps, inputs,
                 num_nodes=n, program=unwired_distance_4(dev), dev=dev)
             faults["unwired_distance_4"] = worst_rel_diff(
-                fault_logits, local_logits[:fault_steps])
+                fault_logits, local_s[:fault_steps])
         for fault, rel in faults.items():
             if not rel > FULL_LOGIT_REL_TOL:
                 raise AssertionError(
@@ -1317,6 +1397,7 @@ def full_width(report: dict, cfg, params, gen, dev="cuda") -> dict:
                     f"{rel:.3g} of the largest: the full-width check would "
                     f"pass it")
         out[path] = dict(
+            layers=p_cfg.num_layers,
             bridge_pull_ms_per_step=statistics.median(pull_ms[1:]),
             bridge_pull_first_step_ms=pull_ms[0], greedy_agreement=agree,
             worst_logit_rel_diff=worst,
@@ -1328,8 +1409,17 @@ def full_width(report: dict, cfg, params, gen, dev="cuda") -> dict:
             out["paged_api"] = paged_over_pool(report, cfg, local_state,
                                                pull_state, gen, dev)
         del pull_state
-        # what the telemetry runs are held to: the same steps, counters off
-        off_logits[path] = pull_logits[:TELEM["steps"]].clone()
+        # what the telemetry runs are held to: the same steps and layers,
+        # counters off
+        if p_cfg is cfg_s:
+            off_logits[path] = pull_logits[:TELEM["steps"]].clone()
+            off_ms[path] = out[path]["bridge_pull_ms_per_step"]
+        else:
+            _, off, off_step_ms, _, _ = decode(
+                cfg_s, params_s, "bridge_pull", *shape, TELEM["steps"],
+                inputs, num_nodes=n, dev=dev)
+            off_logits[path], off_ms[path] = off, statistics.median(
+                off_step_ms[1:])
         del pull_logits
     out.update(pages_flushed_per_sequence=steps // page_tokens,
                peak_gb=torch.cuda.max_memory_allocated() / 1e9)
@@ -1340,8 +1430,8 @@ def full_width(report: dict, cfg, params, gen, dev="cuda") -> dict:
                                             if k != "profile"}))
     del local_state
     torch.cuda.empty_cache()
-    return out, dict(inputs=inputs, local_logits=local_logits,
-                     off_logits=off_logits)
+    return out, dict(inputs=inputs, off_logits=off_logits, off_ms=off_ms,
+                     shallow=depth["1-node"])
 
 
 @contextlib.contextmanager
@@ -1365,14 +1455,15 @@ def planted_push_fault():
         bridge.push_pages = real
 
 
-def push_paths(report: dict, cfg, params, ctx: dict, dev="cuda") -> dict:
+def push_paths(report: dict, ctx: dict, dev="cuda") -> dict:
     """bridge_push (attention at the memory nodes) on 1 and 8 nodes at full
-    width, fed the tokens of phase 3: logits held to local's, exact
-    launches (the flushes only), a profiled step, and a planted lost write
-    that the limit must reject."""
+    width and ``SHALLOW`` layers, fed the tokens of phase 3: logits held to
+    local's on those layers, exact launches (the flushes only), a profiled
+    step, and a planted lost write that the limit must reject."""
     shape = (FULL["batch"], FULL["max_len"], FULL["page_tokens"])
     steps, fault_steps = FULL["steps"], FULL["fault_steps"]
-    inputs, local_logits = ctx["inputs"], ctx["local_logits"]
+    inputs = ctx["inputs"]
+    cfg, params, local_logits = ctx["shallow"]
     out = {}
     for path, n in PATHS.items():
         reset_launches()
@@ -1399,6 +1490,7 @@ def push_paths(report: dict, cfg, params, ctx: dict, dev="cuda") -> dict:
             raise AssertionError(f"{path} planted lost write moved the "
                                  f"bridge_push logits by only {fault:.3g}")
         out[path] = dict(
+            layers=cfg.num_layers,
             bridge_push_ms_per_step=statistics.median(ms[1:]),
             bridge_push_first_step_ms=ms[0], worst_logit_rel_diff=worst,
             planted_lost_write_rel_diff=fault,
@@ -1497,11 +1589,11 @@ def scattered_table(dev) -> MemPortTable:
                         slot=slot.reshape(-1).contiguous())
 
 
-def telemetry_runs(report: dict, cfg, params, ctx: dict, full_out: dict,
-                   dev="cuda") -> dict:
-    """bridge_pull with the counters on, tenant lane b % 2: (a) on 1 and 8
-    nodes with the default table and program, logits bit-identical to the
-    same steps of phase 3's counters-off run, every layer's counters equal
+def telemetry_runs(report: dict, ctx: dict, dev="cuda") -> dict:
+    """bridge_pull with the counters on, tenant lane b % 2, on ``SHALLOW``
+    layers: (a) on 1 and 8 nodes with the default table and program, logits
+    bit-identical to the same steps of phase 3's counters-off run on those
+    layers, every layer's counters equal
     to the host oracle, the launches of the counters-off path; (b) on 8
     nodes with a scattered table and a two-board fabric whose hierarchical
     program wires every (rank, slot) pair, so that every counter field
@@ -1511,7 +1603,8 @@ def telemetry_runs(report: dict, cfg, params, ctx: dict, full_out: dict,
     tenant = np.arange(FULL["batch"]) % TELEM["tenants"]
     kw = dict(collect_telemetry=True, tenant_of_seq=tenant,
               max_tenants=TELEM["tenants"])
-    inputs, local_logits = ctx["inputs"], ctx["local_logits"]
+    inputs = ctx["inputs"]
+    cfg, params, local_logits = ctx["shallow"]
     out = {}
     runs = [(path, n, TELEM["steps"], {}) for path, n in PATHS.items()]
     topo = Topology.boards(2, 4)
@@ -1521,14 +1614,14 @@ def telemetry_runs(report: dict, cfg, params, ctx: dict, full_out: dict,
     for label, n, steps, fabric in runs:
         reset_launches()
         _, logits, ms, nxt, state = decode(
-            cfg, params, "bridge_pull", *shape, steps, inputs, num_nodes=n,
-            dev=dev, **kw, **fabric)
+            cfg, params, "bridge_pull", *shape, steps, inputs,
+            num_nodes=n, dev=dev, **kw, **fabric)
         counts = read_launches()
         hold_launches(report, f"{label} telemetry", counts,
                       expected_launches(n, shape[0], max_pages, 8,
                                         cfg.num_layers), steps)
-        res = dict(steps=steps, ms_per_step=statistics.median(ms[1:]),
-                   first_step_ms=ms[0])
+        res = dict(steps=steps, layers=cfg.num_layers,
+                   ms_per_step=statistics.median(ms[1:]), first_step_ms=ms[0])
         if label in PATHS:
             off = ctx["off_logits"][label]
             res["logits_bit_identical_to_counters_off"] = bool(
@@ -1542,8 +1635,7 @@ def telemetry_runs(report: dict, cfg, params, ctx: dict, full_out: dict,
                     raise AssertionError(f"{label}: the counters changed "
                                          f"the logits")
                 res["counters_off_repeatable"] = False
-            res["counters_off_ms_per_step"] = full_out[label][
-                "bridge_pull_ms_per_step"]
+            res["counters_off_ms_per_step"] = ctx["off_ms"][label]
         res["worst_logit_rel_diff"] = worst_rel_diff(logits,
                                                      local_logits[:steps])
         if res["worst_logit_rel_diff"] > FULL_LOGIT_REL_TOL:
@@ -1625,8 +1717,7 @@ def cache_op_launches(cfg, ops, state, with_counters: bool, dev) -> int:
         ops.append_and_attend(cfg, st, state["kv_shared"], state["lengths"],
                               q, k_new, v_new)
         torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    return len(device_events(prof))
 
 
 def paged_over_pool(report, cfg, local_state, pull_state, gen, dev) -> dict:
@@ -2326,6 +2417,466 @@ def control_phase(report: dict, card: str, dev="cuda") -> dict:
     return dict(out, fit=fit)
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: request-level serving through the launcher's traffic path
+# ---------------------------------------------------------------------------
+
+# two tenants (chat, interactive, share 3; crawl, batch, share 1), 8 slots,
+# max_len 256, page_tokens 16, the QoS policy: 12 arrival steps at 0.5
+# requests a step a tenant give 13 requests (8 chat, 5 crawl) and 133
+# decode steps.  Four retired requests are decoded again alone: those of
+# the fewest tokens among the requests of at least 3 pages' tokens (each
+# flushes 2 pages or more and pulls them for 16 steps or more), both
+# tenants among them and one in a slot that an earlier request had left
+# (with this stream 52 + 68 + 70 + 115 tokens, 301 solo steps)
+SERVE = dict(batch=8, max_len=256, page_tokens=16, steps=12, rate=0.5,
+             seed=0, solo=4, solo_min_pages=3, min_retired=12)
+SERVE_PATHS = {"local": ("local", 1), f"{NODES}-node pull": ("bridge_pull",
+                                                            NODES)}
+
+
+def syncs_in(fn) -> int:
+    """The host syncs ``fn`` makes, counted from the sync debugger's
+    warnings."""
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return sum("called a synchronizing CUDA operation" in str(w.message)
+               for w in caught)
+
+
+def serve_args(cfg, kv: str, num_nodes: int, tmp: str):
+    from repro_torch.launch import serve as launch
+    return launch.build_parser().parse_args([
+        "--arch", cfg.name, "--kv", kv, "--num-nodes", str(num_nodes),
+        "--batch", str(SERVE["batch"]), "--max-len", str(SERVE["max_len"]),
+        "--page-tokens", str(SERVE["page_tokens"]), "--traffic",
+        "--traffic-steps", str(SERVE["steps"]),
+        "--traffic-rate", str(SERVE["rate"]),
+        "--traffic-seed", str(SERVE["seed"]), "--policy", "qos",
+        "--trace-out", f"{tmp}/trace.json",
+        "--debug-bundle", f"{tmp}/bundle.zip"])
+
+
+def check_served(batcher, orc) -> dict:
+    """Every submitted request retired or was shed with a reason, both
+    tenants retired requests, and every leased page came back."""
+    from repro_torch.serve.batcher import SHED_ATTEMPTS, SHED_TERMINAL
+    acc = batcher.accounting()
+    submitted = sum(acc["submitted"].values())
+    done, shed = sum(acc["completed"].values()), sum(acc["shed"].values())
+    if batcher.in_flight() or done + shed != submitted:
+        raise AssertionError(f"serve: {done} retired + {shed} shed of "
+                             f"{submitted} submitted, {batcher.in_flight()} "
+                             f"in flight")
+    reasons = {r for v in batcher.shed.values() for r in v}
+    if not reasons <= {SHED_TERMINAL, SHED_ATTEMPTS}:
+        raise AssertionError(f"serve: shed without a reason: {reasons}")
+    if done < SERVE["min_retired"] or set(acc["completed"]) != set(orc.specs):
+        raise AssertionError(f"serve: retired {acc['completed']}, expected "
+                             f">= {SERVE['min_retired']} over both tenants")
+    held = {t: orc.held_pages(t) for t in orc.specs}
+    if orc.leases or any(held.values()):
+        raise AssertionError(f"serve: pages still held after the drain: "
+                             f"{held}")
+    return dict(submitted=submitted, retired=acc["completed"], shed=shed)
+
+
+def read_back(tmp: str, retired: int) -> dict:
+    """The run's Chrome trace and debug bundle, read back."""
+    import zipfile
+    from repro_torch.obs import FlightRecorder
+    events = json.loads(Path(f"{tmp}/trace.json").read_text())["traceEvents"]
+    cats = {}
+    for e in events[1:]:
+        cats[e["cat"]] = cats.get(e["cat"], 0) + 1
+    if cats.get("request") != retired or not cats.get("round") or not (
+            cats.get("control")):
+        raise AssertionError(f"serve trace: spans by category {cats}, "
+                             f"{retired} requests retired")
+    with zipfile.ZipFile(f"{tmp}/bundle.zip") as z:
+        names = sorted(z.namelist())
+        journal = FlightRecorder.from_jsonl(z.read("journal.jsonl").decode())
+        json.loads(z.read("trace.json"))
+        describe = z.read("describe.txt").decode()
+    if names != ["describe.txt", "journal.jsonl", "metrics.txt",
+                 "trace.json"] or "orchestrator:" not in describe:
+        raise AssertionError(f"serve debug bundle holds {names}")
+    return dict(trace_spans=cats, journal_records=len(journal))
+
+
+def solo_picks(batcher, orc) -> tuple:
+    """The retired sequences the solo decode checks: of the requests of at
+    least ``solo_min_pages`` pages' tokens, the ``solo`` with the fewest
+    tokens in all that hold both tenants and one sequence admitted to a slot
+    that an earlier one had left.  Returns them and the ids of the
+    sequences in such slots."""
+    done = batcher.retired
+    reused = {id(s) for s in done
+              if any(t.slot == s.slot and t.admit_step < s.admit_step
+                     for t in done)}
+    long = [s for s in done if s.req.total_tokens
+            >= SERVE["solo_min_pages"] * SERVE["page_tokens"]]
+    best = None
+    for picks in itertools.combinations(long, SERVE["solo"]):
+        if ({s.req.tenant_id for s in picks} != set(orc.specs)
+                or not any(id(s) in reused for s in picks)):
+            continue
+        tokens = sum(s.req.total_tokens for s in picks)
+        if best is None or tokens < best[0]:
+            best = (tokens, list(picks))
+    if best is None:
+        seen = [(s.req.tenant_id, s.req.total_tokens, s.slot) for s in done]
+        raise AssertionError(
+            f"serve: no {SERVE['solo']} retired requests of "
+            f"{SERVE['solo_min_pages']} pages or more hold both tenants and "
+            f"a reused slot (tenant, tokens, slot): {seen}")
+    return best[1], reused
+
+
+def serve_phase(report: dict, cfg, params, dev="cuda") -> dict:
+    """Phase 9: full-width granite-3-8b serving request traffic through the
+    launcher's ``_traffic_mode`` under each placement, then the fidelity,
+    causality, launch and sync checks."""
+    import tempfile
+
+    from repro_torch.launch import serve as launch
+    from repro_torch.serve.batcher import ModelDecodeEngine, solo_reference
+    t0 = time.perf_counter()
+    out = {}
+    per_slot = -(-SERVE["max_len"] // SERVE["page_tokens"])
+    for label, (kv, n) in SERVE_PATHS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            args = serve_args(cfg, kv, n, tmp)
+            run = launch.make_run(cfg, args)
+            want = (dict.fromkeys(KERNELS, 0) if kv == "local" else
+                    expected_launches(n, SERVE["batch"], per_slot, 8,
+                                      cfg.num_layers))
+            sync(dev)
+            reset_launches()
+            ran = launch._traffic_mode(run, cfg, params, args,
+                                       torch.device(dev))
+            sync(dev)
+            counts = read_launches()
+            orc, batcher, engine = ran["orc"], ran["batcher"], ran["engine"]
+            res = ran["result"]
+            hold_launches(report, f"serve {label}", counts, want,
+                          engine.steps)
+            entry = dict(check_served(batcher, orc),
+                         **read_back(tmp, res["completed"]))
+        # fidelity: retired requests decoded alone in the same slot of a
+        # fresh engine, bit for bit
+        solo = ModelDecodeEngine(run, params, batch=SERVE["batch"],
+                                 max_len=SERVE["max_len"],
+                                 page_tokens=SERVE["page_tokens"],
+                                 num_nodes=n, dtype=torch.bfloat16,
+                                 device=dev)
+        picked, reused = solo_picks(batcher, orc)
+        t_solo = time.perf_counter()
+        reset_launches()
+        for seq in picked:
+            if seq.out != solo_reference(solo, seq.req, slot=seq.slot):
+                raise AssertionError(
+                    f"serve {label}: request {seq.req.req_id} (tenant "
+                    f"{seq.req.tenant_id}, slot {seq.slot}) differs from "
+                    f"its solo decode")
+            if not orc.flight.why(seq.req.req_id):
+                raise AssertionError(f"serve {label}: flight.why("
+                                     f"{seq.req.req_id}) is empty")
+        sync(dev)
+        solo_s = time.perf_counter() - t_solo
+        hold_launches(report, f"serve {label} solo", read_launches(), want,
+                      solo.steps)
+        # the one host sync a step is the emitted tokens; the
+        # orchestrator's outputs upload without one
+        tokens = np.zeros((SERVE["batch"],), np.int32)
+        step_syncs = syncs_in(lambda: solo.step(tokens, [0, 3]))
+        backlogs = {1: [[0, 1]], 2: [[2]]}
+        orc.route_program()
+        out_syncs = syncs_in(lambda: (orc.table(), orc.route_program(),
+                                      orc.active_budget(),
+                                      orc.compose_requests(backlogs)))
+        if step_syncs != 1 or out_syncs:
+            raise AssertionError(f"serve {label}: {step_syncs} host syncs in "
+                                 f"an engine step (expected 1), {out_syncs} "
+                                 f"in the orchestrator's outputs")
+        entry.update(
+            {k: res[k] for k in ("steps", "decode_steps", "tokens",
+                                 "wall_s", "tokens_per_s", "latency_us",
+                                 "ttft_us", "latency_steps", "control_us",
+                                 "decode_ms", "peak_in_flight")},
+            solo_checked=[dict(req=s.req.req_id, tenant=s.req.tenant_id,
+                               tokens=s.req.total_tokens, slot=s.slot,
+                               reused_slot=id(s) in reused) for s in picked],
+            solo_steps=solo.steps, solo_s=solo_s, step_syncs=step_syncs,
+            launches_per_step={k: v for k, v in want.items() if v})
+        print(f"serve {label}:", json.dumps(entry))
+        out[label] = entry
+        del ran, orc, batcher, engine, solo
+        torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    print(f"serve phase: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: the dense configs at full width and depth
+# ---------------------------------------------------------------------------
+
+# the forward at B 2 x S 1024 (median of 3 after a warm-up); teacher-forced
+# local decode over 64 tokens held to the forward; flash at the forward's
+# shapes and, where the config has a window, at one batch row of 1,024
+# tokens past the window (gemma3-12b: S 2048 against w 1024,
+# h2o-danube-3-4b: S 5120 against w 4096), so the window hides keys; a
+# 40-token prompt and 16 greedy steps under local, then bridge_pull and
+# bridge_push on 8 nodes fed local's tokens (max_len 64: 3 pages a sequence
+# flushed and pulled); the fold held to its plain version on the last round
+# that bridge_pull pulled; bridge_pull with a lost page over the fault runs'
+# 18 steps
+DENSE = dict(archs=("gemma3-12b", "h2o-danube-3-4b", "starcoder2-7b"),
+             batch=2, seq=1024, repeats=3, check_seq=64, prompt=40,
+             steps=56, max_len=64, page_tokens=16)
+
+
+def bridge_layers(cfg) -> int:
+    """Layers whose KV goes through the bridge: sliding-window layers keep
+    a local ring under every placement."""
+    return sum(kind != SWA_ATTN for kind in cfg.layers)
+
+
+def check_flash_at(report: dict, path: str, q, k, v, window: int) -> dict:
+    """The bf16 flash kernel, causal with ``window``, one launch of the
+    wgmma kernel within ``FLASH_TOL`` of its plain version, timed beside
+    its bound and one PyTorch call (SDPA; with a mask where the window
+    hides keys)."""
+    before = fa.flash_attention.launches_by_kernel[fa.WGMMA]
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    if fa.flash_attention.launches_by_kernel[fa.WGMMA] != before + 1:
+        raise AssertionError(f"flash_attention ({path}) did not launch the "
+                             f"wgmma kernel once")
+    want = attention_ref(q, k, v, causal=True, window=window)
+    err = float((got.float() - want.float()).abs().max())
+    del got, want
+    if not err <= FLASH_TOL["bfloat16"]:
+        raise AssertionError(f"flash_attention ({path}) differs from its "
+                             f"plain version by {err:.3g}")
+    b, s, h, hd = q.shape
+    keep = visible_mask(s, s, True, window, 0)
+    hidden = int((~keep).sum()) - s * (s - 1) // 2
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    if hidden:
+        mask = keep.to(q.device)
+        library = lambda: sdpa(qt, kt, vt, attn_mask=mask,  # noqa: E731
+                                enable_gqa=True)
+    else:
+        library = lambda: sdpa(qt, kt, vt, is_causal=True,  # noqa: E731
+                               enable_gqa=True)
+    entry = record(
+        report, "flash_attention", path, err=err,
+        ms=cuda_ms(lambda: fa.flash_attention(q, k, v, causal=True,
+                                              window=window), iters=20),
+        plain_ms=cuda_ms(lambda: attention_ref(q, k, v, causal=True,
+                                               window=window),
+                         iters=3, warmup=1),
+        library_ms=cuda_ms(library, iters=20),
+        nbytes=2 * q.numel() * q.element_size()
+        + 2 * k.numel() * k.element_size(),
+        flops=4 * b * h * hd * int(keep.sum()), flop_rate=BF16_FLOP_PER_S,
+        note=f", B {b} S {s} {h}/{k.shape[2]} heads of {hd} window "
+             f"{window}")
+    entry["pairs_the_window_hides"] = hidden
+    return entry
+
+
+def dense_flash(report: dict, arch: str, cfg, gen, dev) -> dict:
+    """Flash at the config's heads: at the forward's shapes, and where the
+    config has a window, at a length where the window hides keys."""
+    h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    window = cfg.window_size if SWA_ATTN in cfg.layers else 0
+    cases = [(DENSE["batch"], DENSE["seq"], f"dense {arch}")]
+    if window:
+        cases.append((1, window + 1024, f"dense {arch} window"))
+    out = {}
+    for b, s, path in cases:
+        q, k, v = (torch.randn((b, s, heads, hd), generator=gen,
+                               device=dev).bfloat16()
+                   for heads in (h, kv, kv))
+        entry = check_flash_at(report, path, q, k, v, window)
+        if path.endswith("window") and not entry["pairs_the_window_hides"]:
+            raise AssertionError(f"{path}: the window hides no key")
+        out[path] = {key: entry[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+            "pairs_the_window_hides")}
+        del q, k, v
+    return out
+
+
+@contextlib.contextmanager
+def last_fold(kept: list):
+    """Keep the operands of the last fold that the decode path calls."""
+    real = kvbridge.stream_decode_accumulate
+
+    def keep(*args):
+        kept[:] = args
+        return real(*args)
+
+    kvbridge.stream_decode_accumulate = keep
+    try:
+        yield
+    finally:
+        kvbridge.stream_decode_accumulate = real
+
+
+def dense_config(report: dict, arch: str, dev="cuda") -> dict:
+    cfg = configs.get_config(arch)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    params = transformer.init_params(cfg, gen, device=dev)
+    sync(dev)
+    n_params = sum(p.numel() for p in _leaves(params))
+    out = dict(layers=cfg.num_layers, bridge_layers=bridge_layers(cfg),
+               params=n_params, init_s=time.perf_counter() - t0)
+    gen.manual_seed(2)
+    b, s, repeats = DENSE["batch"], DENSE["seq"], DENSE["repeats"]
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    logits, _ = transformer.forward(cfg, params, batch)       # warm-up
+    if (tuple(logits.shape) != (b, s, cfg.vocab_size)
+            or not torch.isfinite(logits).all()):
+        raise AssertionError(f"{arch} forward logits {list(logits.shape)}")
+    del logits
+    sync(dev)
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times = []
+    for _ in range(repeats):
+        t1 = time.perf_counter()
+        logits, _ = transformer.forward(cfg, params, batch)
+        sync(dev)
+        times.append((time.perf_counter() - t1) * 1e3)
+        del logits
+    counts = read_launches()
+    want = dict.fromkeys(KERNELS, 0)
+    want["flash_attention"] = cfg.num_layers * repeats
+    if counts != want:
+        raise AssertionError(f"{arch} forward launched {counts}, expected "
+                             f"{want}")
+    count_path(report, f"dense {arch} forward", counts)
+    ms = statistics.median(times)
+    out.update(forward_ms=ms, forward_times_ms=times,
+               prefill_tokens_per_s=b * s / (ms / 1e3),
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del batch
+
+    tokens = torch.randint(0, cfg.vocab_size, (b, DENSE["check_seq"]),
+                           generator=gen, device=dev, dtype=torch.int32)
+    fwd, local, fault = forward_vs_decode(cfg, params, tokens,
+                                          torch.bfloat16, dev)
+    worst = worst_rel_diff(fwd, local)
+    fault_rel = worst_rel_diff(fault, local)
+    if not (torch.isfinite(fwd).all() and torch.isfinite(local).all()):
+        raise AssertionError(f"{arch}: non-finite logits in the forward check")
+    if worst > FORWARD_LOGIT_REL_TOL:
+        raise AssertionError(f"{arch} forward logits differ from local decode "
+                             f"by {worst:.3g} of the largest logit")
+    if not fault_rel > FORWARD_LOGIT_REL_TOL:
+        raise AssertionError(f"{arch} planted mask fault moved the forward's "
+                             f"logits by only {fault_rel:.3g}")
+    out.update(forward_vs_decode_rel_diff=worst,
+               planted_mask_fault_rel_diff=fault_rel)
+    del fwd, local, fault
+    out["flash"] = dense_flash(report, arch, cfg, gen, dev)
+
+    prompt = torch.randint(0, cfg.vocab_size, (DENSE["prompt"], b),
+                           generator=gen, device=dev, dtype=torch.int32)
+    shape = (b, DENSE["max_len"], DENSE["page_tokens"])
+    steps = DENSE["steps"]
+    inputs, local_logits, local_ms, _, _ = decode(cfg, params, "local",
+                                                  *shape, steps, prompt,
+                                                  dev=dev)
+    if not torch.isfinite(local_logits).all():
+        raise AssertionError(f"{arch}: non-finite local decode logits")
+    out["ms_per_step"] = {"local": statistics.median(local_ms[1:])}
+    fold = []
+    for kv in ("bridge_pull", "bridge_push"):
+        reset_launches()
+        with (last_fold(fold) if kv == "bridge_pull"
+              else contextlib.nullcontext()):
+            _, logits, step_ms, _, _ = decode(cfg, params, kv, *shape, steps,
+                                              inputs, num_nodes=NODES,
+                                              dev=dev)
+        sync(dev)
+        want = expected_launches(NODES, b, shape[1] // shape[2], 8,
+                                 bridge_layers(cfg), mode=kv.split("_")[1])
+        hold_launches(report, f"dense {arch} {kv}", read_launches(), want,
+                      steps)
+        worst = worst_rel_diff(logits, local_logits)
+        if not torch.isfinite(logits).all() or worst > FULL_LOGIT_REL_TOL:
+            raise AssertionError(f"{arch} {kv} logits differ from local by "
+                                 f"{worst:.3g} of the largest logit")
+        if not bridge_layers(cfg) and not torch.equal(logits, local_logits):
+            raise AssertionError(f"{arch} {kv}: no layer reaches the bridge, "
+                                 f"yet the logits differ from local's")
+        out["ms_per_step"][kv] = statistics.median(step_ms[1:])
+        out[f"{kv}_rel_diff"] = worst
+        out[f"{kv}_greedy_agreement"] = float(
+            (logits.argmax(-1) == local_logits.argmax(-1)).float().mean())
+        out[f"{kv}_launches_per_step"] = {k: v for k, v in want.items() if v}
+        del logits
+    if bridge_layers(cfg):
+        # the fold at this config's heads, on the operands of the last
+        # round bridge_pull pulled (its last layer at its last step)
+        q, kp, vp, seq, lv, m, l, o = fold
+        if not int(lv.sum()):
+            raise AssertionError(f"{arch}: the last pulled round has no "
+                                 f"live lane")
+        check_stream(report, f"dense {arch}", *fold, [])
+        entry = report["stream_decode_accumulate"]["by_path"][
+            f"dense {arch}"]
+        out["fold"] = {key: entry[key] for key in (
+            "max_abs_err", "ms", "plain_ms", "bound_ms")}
+        out["fold"]["shape"] = dict(lanes=kp.shape[0], live=int(lv.sum()),
+                                    heads=q.shape[1], kv=kp.shape[2],
+                                    head_dim=q.shape[2])
+        del q, kp, vp, seq, lv, m, l, o
+        # a bridge that loses a page must break the placements' limit
+        with planted_fault():
+            _, fault_logits, _, _, _ = decode(
+                cfg, params, "bridge_pull", *shape, FULL["fault_steps"],
+                inputs, num_nodes=NODES, dev=dev)
+        fault_rel = worst_rel_diff(fault_logits,
+                                   local_logits[:FULL["fault_steps"]])
+        if not fault_rel > FULL_LOGIT_REL_TOL:
+            raise AssertionError(f"{arch} planted lost page moved the "
+                                 f"bridge_pull logits by only "
+                                 f"{fault_rel:.3g} of the largest")
+        out["planted_lost_page_rel_diff"] = fault_rel
+        del fault_logits
+    del fold
+    out["seconds"] = time.perf_counter() - t0
+    del params, local_logits
+    torch.cuda.empty_cache()
+    print(f"dense {arch}:", json.dumps(out))
+    return out
+
+
+def dense_phase(report: dict, dev="cuda") -> dict:
+    """Phase 10: each dense config at full width and depth in bf16, one at
+    a time, each freed before the next."""
+    t0 = time.perf_counter()
+    out = {arch: dense_config(report, arch, dev) for arch in DENSE["archs"]}
+    out["seconds"] = time.perf_counter() - t0
+    print(f"dense phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -2371,13 +2922,13 @@ def main() -> int:
                            "bound_by", "library_ms")})
     t_phase = time.perf_counter()
     cfg, params, gen = full_params()
-    full_out, ctx = full_width(report, cfg, params, gen)
+    _, ctx = full_width(report, cfg, params, gen)
     print(f"decode phase, pull: {time.perf_counter() - t_phase:.1f} s")
     t_sub = time.perf_counter()
-    push_paths(report, cfg, params, ctx)
+    push_paths(report, ctx)
     print(f"decode phase, push: {time.perf_counter() - t_sub:.1f} s")
     t_sub = time.perf_counter()
-    telemetry_runs(report, cfg, params, ctx, full_out)
+    telemetry_runs(report, ctx)
     print(f"decode phase, telemetry: {time.perf_counter() - t_sub:.1f} s")
     del ctx
     torch.cuda.empty_cache()
@@ -2385,13 +2936,18 @@ def main() -> int:
     print(f"decode phases: {time.perf_counter() - t_phase:.1f} s")
     t_phase = time.perf_counter()
     forward_phase(report, cfg, params)
+    print(f"forward phase: {time.perf_counter() - t_phase:.1f} s")
+    serve_phase(report, cfg, params)
     del params
     torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
     forward_reduced_f32(report)
     stream_bridge(report)
-    print(f"forward and stream phases: {time.perf_counter() - t_phase:.1f} s")
+    print(f"reduced forward and stream phases: "
+          f"{time.perf_counter() - t_phase:.1f} s")
     programs_swap()
     control_phase(report, card)
+    dense_phase(report)
     print(f"smoke: {time.perf_counter() - t0:.1f} s after the build started")
 
     for name, k in KERNELS.items():

@@ -1,12 +1,14 @@
 """Architecture registry of the port.
 
 ``get_config(arch_id)`` returns the full-size config: a ModelConfig for
-``granite-3-8b``, and for ``paper-stream`` the paper's own case study
+the dense LMs (``h2o-danube-3-4b``, ``gemma3-12b``, ``granite-3-8b``,
+``starcoder2-7b``), and for ``paper-stream`` the paper's own case study
 (``paper_stream.StreamCaseStudy``: STREAM over the bridge, not an LM).
 ``get_reduced(arch_id)`` returns the same-family smoke-test config of an LM
 (``paper-stream`` has none); ``lm_archs()`` lists the registered LMs.  The
-other architectures of the reference come with the port's later slices
-(prefill and the other model families).
+other architectures of the reference (MoE, recurrent, xLSTM, the
+encoder-decoder and the vision-language model) come with the port's later
+slices.
 """
 from __future__ import annotations
 
@@ -14,7 +16,9 @@ import importlib
 
 from repro_torch.config import ModelConfig, reduced
 
-ARCH_IDS = ("granite-3-8b", "paper-stream")
+# in the reference's order
+ARCH_IDS = ("h2o-danube-3-4b", "gemma3-12b", "granite-3-8b", "starcoder2-7b",
+            "paper-stream")
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -1,0 +1,22 @@
+"""StarCoder2-7B: dense GQA (kv=4), RoPE, 36 heads.
+
+[arXiv:2402.19173; hf]
+"""
+from repro_torch.config import FULL_ATTN, ModelConfig
+
+CONFIG = ModelConfig(
+    name="starcoder2-7b",
+    family="dense",
+    num_layers=32,
+    d_model=4608,
+    num_heads=36,
+    num_kv_heads=4,
+    d_ff=18432,
+    vocab_size=49152,
+    head_dim=128,
+    layer_pattern=(FULL_ATTN,),
+    norm="layernorm",
+    act="gelu",
+    glu=False,
+    rope_theta=1_000_000.0,
+)

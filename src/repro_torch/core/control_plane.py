@@ -40,9 +40,10 @@ operations gives bit-identical tables, free lists, plans and programs in
 both packages.  Only the outputs live on ``device``: :meth:`table` and the
 compiled program are built there, and stay run-time inputs of the bridge.
 Telemetry may lie on the card: it is read through
-:func:`repro_torch.telemetry.aggregate.to_host`.  The reference's flight
-journal (``attach_flight`` and its records) is not ported here: it needs
-the flight recorder of the observability plane.
+:func:`repro_torch.telemetry.aggregate.to_host`.  With a flight recorder
+attached (:meth:`ControlPlane.attach_flight`) every decision is journaled
+record for record as the reference journals it, so one sequence of
+operations gives both packages the same journal.
 """
 from __future__ import annotations
 
@@ -56,9 +57,10 @@ from repro_torch.analysis.findings import ProgramVerificationError, errors
 from repro_torch.analysis.program_check import check_program
 from repro_torch.core import perfmodel, steering
 from repro_torch.core.memport import FREE, MemPortTable
-from repro_torch.core.steering import to_numpy
+from repro_torch.core.steering import to_device, to_numpy
 from repro_torch.core.topology import Topology
 from repro_torch.kernels import bridge_gather as _bg
+from repro_torch.obs import flight as _fl
 from repro_torch.telemetry.aggregate import dominant_requester, to_host
 from repro_torch.telemetry.counters import BridgeTelemetry
 
@@ -145,6 +147,7 @@ class ControlPlane:
         self.topology = topology or Topology.flat(num_nodes)
         self.pages_per_node = pages_per_node
         self.num_logical = num_logical
+        self._seed = seed
         self._rng = np.random.default_rng(seed)
         self._free: list[list[int]] = [
             list(range(pages_per_node)) for _ in range(num_nodes)]
@@ -157,13 +160,58 @@ class ControlPlane:
         self.nodes = [NodeState() for _ in range(num_nodes)]
         self._failed_link_direction: Optional[int] = None
         self.device = torch.device(device)
+        # Optional flight recorder (repro_torch.obs.flight.FlightRecorder).
+        self.flight = None
+
+    # -- flight journal --------------------------------------------------------
+    def attach_flight(self, recorder) -> None:
+        """Journal every subsequent decision into ``recorder``.
+
+        Records a ``cp_init`` genesis carrying the constructor arguments
+        *and* a full placement-state snapshot (tables, free lists, RNG
+        state, live regions), so a journal attached mid-life still
+        replays bit-identically from its own first record.
+        """
+        self.flight = recorder
+        topo = self.topology
+        recorder.record(
+            "cp_init", num_nodes=self.num_nodes,
+            pages_per_node=self.pages_per_node,
+            num_logical=self.num_logical, seed=self._seed,
+            group_sizes=np.asarray(topo.group_sizes).tolist(),
+            topo_hw=[topo.board_hop_us, topo.rack_hop_us,
+                     topo.board_link_gbps, topo.rack_link_gbps],
+            state=self._state_snapshot())
+
+    def _state_snapshot(self) -> dict:
+        return {
+            "home": self._home.tolist(),
+            "slot": self._slot.tolist(),
+            "free": [list(f) for f in self._free],
+            "free_logical": list(self._free_logical),
+            "next_logical": self._next_logical,
+            "next_region": self._next_region,
+            "alive": [bool(n.alive) for n in self.nodes],
+            "failed_link": self._failed_link_direction,
+            "rng_state": self._rng.bit_generator.state,
+            "regions": {str(rid): {
+                "name": r.name, "policy": r.policy,
+                "page_ids": np.asarray(r.page_ids).tolist()}
+                for rid, r in self._regions.items()},
+        }
+
+    def _journal(self, kind: str, **detail) -> None:
+        if self.flight is not None:
+            self.flight.record(kind, **detail)
 
     # -- table export ---------------------------------------------------------
     def table(self) -> MemPortTable:
-        """The placement as a memport table on the plane's device."""
-        return MemPortTable(
-            home=torch.tensor(self._home.astype(np.int32), device=self.device),
-            slot=torch.tensor(self._slot.astype(np.int32), device=self.device))
+        """The placement as a memport table on the plane's device (an
+        upload that does not wait for the card)."""
+        return MemPortTable(home=to_device(self._home.astype(np.int32),
+                                           self.device),
+                            slot=to_device(self._slot.astype(np.int32),
+                                           self.device))
 
     def free_slots(self, node: int) -> int:
         return len(self._free[node])
@@ -251,6 +299,13 @@ class ControlPlane:
                         ids, policy)
         self._regions[region.region_id] = region
         self._next_region += 1
+        if self.flight is not None:
+            self._journal(
+                "allocate", num_pages=num_pages, name=region.name,
+                policy=policy, affinity=affinity, region_id=region.region_id,
+                page_ids=ids.tolist(),
+                homes=[int(self._home[i]) for i in ids],
+                slots=[int(self._slot[i]) for i in ids])
         return region
 
     def release(self, region: Region) -> None:
@@ -277,6 +332,9 @@ class ControlPlane:
             # monotonic id space while the pool has free slots).
             self._free_logical.append(int(pid))
         self._regions.pop(region.region_id, None)
+        if self.flight is not None:
+            self._journal("release", region_id=region.region_id,
+                          page_ids=np.asarray(region.page_ids).tolist())
 
     # -- failure handling (elastic remap) --------------------------------------
     def fail_node(self, node: int) -> list[MigrationStep]:
@@ -305,6 +363,9 @@ class ControlPlane:
             self._slot[pid] = s
         # Failed node's slots return to a quarantine (not reusable).
         self._free[node] = []
+        self._journal("fail_node", node=node,
+                      plan=[[s.page_id, s.old_home, s.old_slot,
+                             s.new_home, s.new_slot] for s in plan])
         return plan
 
     def revive_node(self, node: int) -> None:
@@ -312,6 +373,7 @@ class ControlPlane:
         self._free[node] = [s for s in range(self.pages_per_node)
                             if not np.any((self._home == node)
                                           & (self._slot == s))]
+        self._journal("revive_node", node=node)
 
     # -- straggler mitigation ---------------------------------------------------
     def record_step_time(self, node: int, seconds: float) -> None:
@@ -376,9 +438,11 @@ class ControlPlane:
         if direction not in (1, -1):
             raise ValueError("direction must be +1 or -1")
         self._failed_link_direction = direction
+        self._journal("link_failure", direction=direction)
 
     def clear_link_failure(self) -> None:
         self._failed_link_direction = None
+        self._journal("link_clear")
 
     def live_distances(self, requesters: Optional[list[int]] = None
                        ) -> list[int]:
@@ -418,6 +482,7 @@ class ControlPlane:
         *want* an unchecked install (benchmarked fault injection).
         """
         compiled = program is None
+        telemetry = _host_telemetry(telemetry)
         if compiled:
             program = self._compile_route_program(
                 requesters, bidirectional=bidirectional, prune=prune,
@@ -426,6 +491,23 @@ class ControlPlane:
             bad = errors(check_program(program, self.topology))
             if bad:
                 raise ProgramVerificationError(bad)
+        if self.flight is not None:
+            snap = (_fl.route_telemetry_snapshot(telemetry)
+                    if compiled else None)
+            measured = bool(snap is not None and snap["dist"]
+                            and sum(snap["dist"]) > 0)
+            self._journal(
+                "route_program", compiled=compiled,
+                requesters=(None if requesters is None
+                            else [int(r) for r in requesters]),
+                bidirectional=bidirectional, prune=prune, verified=verify,
+                variant=_fl.route_variant(
+                    compiled=compiled,
+                    hierarchical=self.topology.num_groups > 1,
+                    failed_link=self._failed_link_direction is not None,
+                    bidirectional=bidirectional, measured=measured),
+                telemetry=snap, program=_fl.program_to_dict(program),
+                digest=_fl.program_digest(program))
         return program
 
     def _compile_route_program(self, requesters: Optional[list[int]] = None,
@@ -528,6 +610,23 @@ class ControlPlane:
         return steering.pruned_program(base, self.live_distances(requesters))
 
     def select_channels(self, budget: int, page_bytes: int, telemetry=None,
+                        max_channels: int = 8, program=None,
+                        calibrator=None) -> int:
+        telemetry = _host_telemetry(telemetry)
+        pick = self._select_channels(budget, page_bytes, telemetry,
+                                     max_channels, program, calibrator)
+        if self.flight is not None:
+            self._journal(
+                "select_channels", budget=budget, page_bytes=page_bytes,
+                max_channels=max_channels,
+                telemetry=_fl.wire_telemetry_snapshot(telemetry),
+                calibrator=_fl.calibrator_snapshot(calibrator),
+                program=(None if program is None
+                         else _fl.program_to_dict(program)),
+                pick=pick)
+        return pick
+
+    def _select_channels(self, budget: int, page_bytes: int, telemetry=None,
                          max_channels: int = 8, program=None,
                          calibrator=None) -> int:
         """Pick the bridge's pipeline depth from measured wire occupancy.
@@ -682,6 +781,11 @@ class ControlPlane:
                 self._free[h].append(int(self._slot[pid]))
                 self._home[pid] = t
                 self._slot[pid] = s
+        if self.flight is not None:
+            self._journal(
+                "migration", traffic=tm.tolist(), min_share=min_share,
+                limit=limit, plan=[[s.page_id, s.old_home, s.old_slot,
+                                    s.new_home, s.new_slot] for s in plan])
         return plan
 
     # -- introspection ----------------------------------------------------------

@@ -63,6 +63,19 @@ def default_route_schedule(num_nodes: int) -> list[int]:
 # Route programs (runtime circuit schedules)
 # ---------------------------------------------------------------------------
 
+def to_device(a, device) -> torch.Tensor:
+    """A host array (or sequence) as a tensor on ``device``.  On a CUDA
+    device the copy starts without waiting for the work queued on the
+    card (an asynchronous copy from pageable memory stages the bytes before
+    it returns), so an upload between steps does not synchronise the host
+    with the card."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    device = torch.device(device)
+    if device.type == "cpu":
+        return t.clone()
+    return t.to(device, non_blocking=True)
+
+
 def to_numpy(x) -> np.ndarray:
     """A tensor on any device (copied to the host), or an array, as a
     numpy array."""
@@ -165,14 +178,11 @@ def _program(off, epoch, live, rank_epoch=None, *, device) -> RouteProgram:
     if rank_epoch is None:
         rank_epoch = _rank_epoch_from(np.asarray(epoch, np.int64),
                                       np.asarray(live, bool))
-    dev = torch.device(device)
-
     def i32(a):
-        return torch.tensor(np.asarray(a, np.int64).astype(np.int32),
-                            device=dev)
+        return to_device(np.asarray(a, np.int64).astype(np.int32), device)
 
     return RouteProgram(offsets=i32(off), epoch=i32(epoch),
-                        live=torch.tensor(np.asarray(live, bool), device=dev),
+                        live=to_device(np.asarray(live, bool), device),
                         rank_epoch=i32(rank_epoch))
 
 

@@ -104,8 +104,9 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
     hd = x.shape[-1]
     half = hd // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32,
-                                   device=x.device), exps)
+    # theta filled on the device: an upload here would wait for the card
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32,
+                                 device=x.device), exps)
     ang = positions[..., None].float() * freqs               # [..., S, half]
     cos = torch.cos(ang)[..., None, :]                        # [..., S, 1, half]
     sin = torch.sin(ang)[..., None, :]

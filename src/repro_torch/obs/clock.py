@@ -24,3 +24,24 @@ class MonotonicClock(Clock):
 
     def now_us(self) -> float:
         return (time.perf_counter() - self._origin) * 1e6
+
+
+class ManualClock(Clock):
+    """Deterministic clock: advances ``tick_us`` on every read.
+
+    Two runs that make the same sequence of ``now_us()`` calls observe
+    identical timestamps, which makes trace and journal output
+    byte-for-byte reproducible regardless of host speed.
+    """
+
+    def __init__(self, start_us: float = 0.0, tick_us: float = 1.0):
+        self._now = float(start_us)
+        self.tick_us = float(tick_us)
+
+    def now_us(self) -> float:
+        t = self._now
+        self._now += self.tick_us
+        return t
+
+    def advance(self, us: float) -> None:
+        self._now += float(us)

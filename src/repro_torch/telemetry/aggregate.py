@@ -34,7 +34,9 @@ def dominant_requester(traffic: np.ndarray, home: int) -> tuple[int, float]:
 
 def to_host(telem: BridgeTelemetry) -> BridgeTelemetry:
     """``telem`` with every field an int64 numpy array, copied off the
-    device in one transfer."""
+    device in one transfer; a copy already on the host as given."""
+    if not torch.is_tensor(telem.traffic):
+        return telem
     names = [f.name for f in fields(telem)]
     parts = [getattr(telem, n) for n in names]
     flat = torch.cat([p.reshape(-1).to(torch.int64) for p in parts]).cpu()

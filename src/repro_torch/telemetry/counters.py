@@ -57,6 +57,15 @@ def num_epoch_bins(num_nodes: int) -> int:
 DEFAULT_MAX_TENANTS = 4
 
 
+def _sum_last(x):
+    """Sum over the last axis: int32 on a tensor, the array's own integer
+    type on a host copy (:func:`~repro_torch.telemetry.aggregate.to_host`),
+    so the methods below serve both."""
+    if torch.is_tensor(x):
+        return x.sum(-1, dtype=torch.int32)
+    return x.sum(-1)
+
+
 @dataclass(frozen=True)
 class BridgeTelemetry:
     """Per-requester bridge counters, int32 tensors with static trailing
@@ -93,13 +102,11 @@ class BridgeTelemetry:
 
     def served_total(self) -> torch.Tensor:
         """Pages served per requester (loopback + all circuit slots)."""
-        return self.loopback_served + self.slot_served.sum(-1,
-                                                           dtype=torch.int32)
+        return self.loopback_served + _sum_last(self.slot_served)
 
     def wire_pages(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(cw, ccw) pages moved over each ring direction per requester."""
-        return (self.epoch_cw.sum(-1, dtype=torch.int32),
-                self.epoch_ccw.sum(-1, dtype=torch.int32))
+        return _sum_last(self.epoch_cw), _sum_last(self.epoch_ccw)
 
     def slot_bytes(self, page_bytes: int) -> torch.Tensor:
         """Per-slot wire bytes (static page size x served counts)."""
@@ -107,8 +114,8 @@ class BridgeTelemetry:
 
     def tier_pages(self) -> tuple[torch.Tensor, torch.Tensor]:
         """(intra-board, inter-board) circuit pages per requester."""
-        intra = self.slot_intra.sum(-1, dtype=torch.int32)
-        return intra, self.slot_served.sum(-1, dtype=torch.int32) - intra
+        intra = _sum_last(self.slot_intra)
+        return intra, _sum_last(self.slot_served) - intra
 
     def tenant_bytes(self, page_bytes: int) -> torch.Tensor:
         """Per-tenant wire+loopback bytes (static page size x served)."""

@@ -732,3 +732,56 @@ def test_loopback_table_nodes_pull_matches_cpu(cuda):
     for got, want in ((card[2], cpu[2]), (card[3], cpu[3])):
         for f in dataclasses.fields(got):
             assert (getattr(got, f.name) == getattr(want, f.name)).all(), f
+
+
+# The decode shapes of the dense configs, T 16 in bf16: (H, kv, hd) of
+# gemma3-12b (hd 256, g 2), h2o-danube-3-4b (hd 120, g 4) and starcoder2-7b
+# (hd 128, g 9).  None is fold_page16's (hd 128, g 4): the general fold runs.
+DENSE_HEADS = [(16, 8, 256), (32, 8, 120), (36, 4, 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kv,hd", DENSE_HEADS)
+@pytest.mark.parametrize("round_", ["one sequence, W 8", "8-node round, W 64",
+                                    "W 256, 28 lanes a sequence past 8 warps"])
+def test_stream_kernel_dense_config_shapes_match_plain(cuda, round_, h, kv,
+                                                       hd):
+    """The fold at the dense configs' heads within 1e-5 of the plain
+    version, bit-identical from call to call."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(23)
+    b, seq, dead = FOLD_ROUNDS[round_]
+    args = _fold_round(gen, cuda, torch.bfloat16, b, seq, dead, h, kv, hd, 16)
+    got = ba.stream_decode_accumulate(*args)
+    again = ba.stream_decode_accumulate(*args)
+    want = ba.stream_decode_accumulate_plain(*args)
+    for g_, a_, w_ in zip(got, again, want):
+        torch.testing.assert_close(g_, w_, rtol=1e-5, atol=1e-5)
+        assert torch.equal(g_, a_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("h,kv,hd", DENSE_HEADS)
+def test_paged_kernel_dense_config_shapes_match_plain(cuda, h, kv, hd):
+    """Paged attention at the dense configs' heads (bf16, T 16) within the
+    reference suite's 3e-2 of the plain version, over lengths of 0, under
+    a page, ragged and past max_pages."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(24)
+    b, mp, t = 8, 20, 16
+    slots = b * mp + 3
+    kp, vp = (torch.randn((slots, t, kv, hd), generator=gen,
+                          device=cuda).to(torch.bfloat16) for _ in range(2))
+    table = torch.randperm(slots, generator=gen, device=cuda)[:b * mp].view(
+        b, mp).to(torch.int32)
+    table[3, 2] = -1
+    lengths = torch.tensor([0, t - 1, mp * t, mp * t + 40, 3 * t + 5,
+                            9 * t, 17 * t + 1, t], dtype=torch.int32,
+                           device=cuda)
+    q = torch.randn((b, h, hd), generator=gen, device=cuda).to(torch.bfloat16)
+    got = pa.paged_attention(q, kp, vp, table, lengths, max_pages=mp)
+    again = pa.paged_attention(q, kp, vp, table, lengths, max_pages=mp)
+    want = pa.paged_attention_plain(q, kp, vp, table, lengths, max_pages=mp)
+    torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=3e-2)
+    assert torch.equal(got, again)
+    assert not got[0].any()

@@ -171,7 +171,7 @@ def test_from_reference_layout(slice_setup):
 
 def test_unregistered_arch_names_later_slice():
     with pytest.raises(KeyError, match="later slice"):
-        tconfigs.get_config("gemma3-12b")
+        tconfigs.get_config("recurrentgemma-9b")
     assert tconfigs.get_config("granite-3-8b").num_layers == 40
 
 
