@@ -147,7 +147,33 @@ prints no result):
               round the pull pulled, at the config's heads (16/8 of 256,
               36/4 of 128); and a pull that loses a page must break the
               5e-2 limit;
-11. report  — one JSON line listing every ported kernel with its launches on
+11. train   — the training path: the flash backward kernel against its
+              plain version (bf16 at the training shapes, B 4 x S 1024,
+              32/8 heads of 128, causal, within 2e-2 of the largest
+              gradient; float32 there and at the mask and head-size cases,
+              a row that sees no key among them, within 2e-4), bit-identical
+              between calls, a planted fault (q_offset shifted by one) that
+              must break every limit, timed beside its bound (the
+              backward's five products, 2.5 times the forward's operations)
+              and the library's backward through SDPA; the forward kernels
+              at the sequence forward's shapes with the lse not asked for
+              and asked for; granite-3-8b at full width on 4 of its 40
+              layers in bf16 (weights from seed 0, remat "block"): a warm-up
+              step and 5 timed ones on a repeated SyntheticLM batch of
+              B 4 x S 1024, the loss after them below the first, each layer
+              a step two forward flash launches (the forward and the
+              backward's recompute) and one backward launch, ms a step,
+              tokens/s, peak memory and one step's forward / backward /
+              optimizer split; one reduced float32 step on the card against
+              the same step on the CPU (the plain versions) from the same
+              state, within 1e-4; and the AdamW moments of the first 2
+              layers through two ``zero_bridge`` stores over 4 logical
+              memory nodes (the loopback path, pages of 16,384 float32):
+              a step through the pool bit-identical to the local one, a
+              checkpoint, node 2 failed, ``rehome_after_failure`` from the
+              checkpoint image, pulls bit-identical to it, no page on node
+              2, one gather a pull and one scatter a push;
+12. report  — one JSON line listing every ported kernel with its launches on
               the paths that ran it, the card's name and power limit, then
               the result line.
 
@@ -169,6 +195,7 @@ import dataclasses
 import functools
 import itertools
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -183,10 +210,12 @@ sys.path.insert(0, str(ROOT / "src"))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
-from repro_torch import configs  # noqa: E402
+from repro_torch import configs, tree  # noqa: E402
+from repro_torch.checkpoint import CheckpointManager  # noqa: E402
 from repro_torch.config import (SWA_ATTN, BridgeConfig,  # noqa: E402
-                                RunConfig, ShapeConfig)
+                                OptimConfig, RunConfig, ShapeConfig)
 from repro_torch.core import bridge, kvbridge, steering  # noqa: E402
+from repro_torch.core import zero_bridge  # noqa: E402
 from repro_torch.core import ref as tref  # noqa: E402
 from repro_torch.core.control_plane import (ControlPlane,  # noqa: E402
                                             execute_plan, plan_rows)
@@ -201,11 +230,14 @@ from repro_torch.kernels import ops as kops  # noqa: E402
 from repro_torch.kernels import paged_attention as pa  # noqa: E402
 from repro_torch.kernels import stream as st  # noqa: E402
 from repro_torch.models import attention, transformer  # noqa: E402
-from repro_torch.models.flash import attention_ref  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM, to_device  # noqa: E402
+from repro_torch.models.flash import attention_ref, flash_bwd_ref  # noqa: E402,E501
+from repro_torch.optim import adamw  # noqa: E402
 from repro_torch.serve import step as serve_step  # noqa: E402
 from repro_torch.telemetry import TelemetryAggregator  # noqa: E402
 from repro_torch.telemetry import counters as tcounters  # noqa: E402
 from repro_torch.telemetry.aggregate import to_host  # noqa: E402
+from repro_torch.train import step as train_step  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12           # H100 SXM float32 outside the tensor cores
@@ -282,6 +314,12 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/stream.cu",
         replaces="src/repro/kernels/stream.py:62", paths=(),
         headline="triad float32"),
+    # no pallas_call: the counterpart of the reference's XLA custom VJP
+    "flash_attention_bwd": dict(
+        fns=(fa.flash_attention_bwd,),
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/flash.py:176", paths=(),
+        headline="train bf16"),
 }
 
 
@@ -2877,6 +2915,462 @@ def dense_phase(report: dict, dev="cuda") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: training
+# ---------------------------------------------------------------------------
+
+# granite-3-8b at full width, cut to 4 of its 40 layers (one card holds the
+# bf16 weights and float32 moments of 40 layers in 96 GB); the moments'
+# trip through the pool takes the first 2 layers (the checkpoint it writes
+# and reads back is 4.8 GB of float32 moments, not 16).
+TRAIN = dict(layers=4, batch=4, seq=1024, steps=5, pool_layers=2,
+             pool_nodes=4, page_elems=16_384, failed_node=2)
+# The backward against its plain version: float32 as an absolute limit (the
+# kernel's float32 sums differ from the plain version's in order only),
+# bf16 over the largest gradient (p and ds are rounded to bf16 where the
+# plain version rounds them, the sums in another order).
+BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+# float32 cases beside the training shape: (B, Sq, Sk, H, kv, hd, causal,
+# window, q_offset); the third leaves its first 40 rows no key to see.
+FLASH_BWD_CASES = [
+    (1, 300, 300, 32, 8, 128, True, 100, 0),
+    (1, 128, 384, 32, 8, 128, True, 0, 256),
+    (1, 64, 64, 4, 2, 64, True, 16, -40),
+    (1, 256, 256, 4, 1, 64, True, 0, 0),
+    (1, 256, 256, 4, 1, 256, True, 0, 0),
+]
+# the reduced float32 step on the card against the same step on the CPU
+TRAIN_REDUCED_TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def bwd_inputs(gen, dtype, b, sq, sk, h, kv, hd, dev="cuda"):
+    return [torch.randn(shape, generator=gen, device=dev).to(dtype)
+            for shape in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd),
+                          (b, sq, h, hd))]
+
+
+def bwd_error(got, want) -> float:
+    """The backward's error by its limit's measure: the largest absolute
+    difference of dq, dk and dv, over the largest gradient in bf16."""
+    err = max(float((g.float() - w.float()).abs().max())
+              for g, w in zip(got, want))
+    if got[0].dtype == torch.bfloat16:
+        err /= max(float(w.float().abs().max()) for w in want)
+    return err
+
+
+def check_bwd_case(q, k, v, do, **kw) -> dict:
+    """One backward call against its plain version on the same inputs:
+    one launch, within its limit, bit-identical on a second call, zero
+    gradients for rows that see no key; and with q_offset shifted by one
+    (every query also sees the next key) the limit must break."""
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    again = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    if fa.flash_attention_bwd.launches != before + 2:
+        raise AssertionError("flash_attention_bwd: not one launch a call")
+    if not all(torch.equal(x, y) for x, y in zip(got, again)):
+        raise AssertionError(f"flash_attention_bwd {list(q.shape)} {kw}: two "
+                             f"calls differ")
+    want = flash_bwd_ref(q, k, v, o, do, lse, **kw)
+    err = bwd_error(got, want)
+    tol = BWD_TOL[q.dtype]
+    if not err <= tol:
+        raise AssertionError(f"flash_attention_bwd {list(q.shape)} {kw} "
+                             f"{q.dtype} differs from its plain version by "
+                             f"{err:.3g} (limit {tol})")
+    sq, sk = q.shape[1], k.shape[1]
+    dead = ~visible_mask(sq, sk, kw.get("causal", True), kw.get("window", 0),
+                         kw.get("q_offset", 0)).any(1)
+    if got[0][:, dead.to(q.device)].any():
+        raise AssertionError("flash_attention_bwd: a row that sees no key "
+                             "has a nonzero dq")
+    shifted = dict(kw, q_offset=kw.get("q_offset", 0) + 1)
+    fault = bwd_error(fa.flash_attention_bwd(q, k, v, o, do, lse, **shifted),
+                      want)
+    if fault <= tol:
+        raise AssertionError(f"flash_attention_bwd with q_offset shifted by "
+                             f"one moved the gradients by only {fault:.3g}: "
+                             f"the check would pass it")
+    return dict(err=err, planted_q_offset_1=fault, dead_rows=int(dead.sum()),
+                o=o, lse=lse, want=want)
+
+
+def check_flash_bwd(report: dict, gen, dev="cuda") -> dict:
+    """The backward kernel at the training shapes (B 4 x S 1024, 32/8 heads
+    of 128, causal) in bf16, timed beside its bound (the backward's five
+    products over the visible pairs, 2.5 times the forward's operations,
+    at the bf16 tensor cores' peak; the float32 run at the CUDA cores'),
+    its plain version and the library's backward (``torch.autograd.grad``
+    through ``scaled_dot_product_attention``, shown for comparison); then
+    float32 at the mask and head-size cases."""
+    b, s, h, kv, hd = TRAIN["batch"], TRAIN["seq"], 32, 8, 128
+    pairs = int(visible_mask(s, s, True, 0, 0).sum())
+    out = {}
+    for dtype, path, rate in ((torch.bfloat16, "train bf16", BF16_FLOP_PER_S),
+                              (torch.float32, "train f32", F32_FLOP_PER_S)):
+        q, k, v, do = bwd_inputs(gen, dtype, b, s, s, h, kv, hd, dev)
+        res = check_bwd_case(q, k, v, do)
+        o, lse = res["o"], res["lse"]
+
+        def call():
+            return fa.flash_attention_bwd(q, k, v, o, do, lse)
+
+        qt, kt, vt = (x.detach().transpose(1, 2).requires_grad_()
+                      for x in (q, k, v))
+        ot = torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True, enable_gqa=True)
+        dot = do.transpose(1, 2)
+
+        def library():
+            return torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                       retain_graph=True)
+
+        dev_us = sum(device_us(call, name, calls=5)
+                     for name in fa.BWD_KERNELS)
+        entry = record(
+            report, "flash_attention_bwd", path, err=res["err"],
+            ms=cuda_ms(call, iters=10, warmup=2),
+            plain_ms=cuda_ms(lambda: flash_bwd_ref(q, k, v, o, do, lse),
+                             iters=3, warmup=1),
+            library_ms=cuda_ms(library, iters=20, warmup=3),
+            nbytes=4 * q.nbytes + 4 * k.nbytes + lse.nbytes,
+            flops=10 * b * h * hd * pairs, flop_rate=rate,
+            note=f", B {b} S {s} causal {str(dtype)[6:]}", dev_us=dev_us)
+        entry["planted_q_offset_1"] = res["planted_q_offset_1"]
+        entry["device_us_by_kernel"] = {
+            name: device_us(call, name, calls=5) for name in fa.BWD_KERNELS}
+        out[path] = entry
+        del q, k, v, do, o, lse, res, qt, kt, vt, ot, dot
+    worst, dead, faults = 0.0, 0, []
+    for case in FLASH_BWD_CASES:
+        b_, sq, sk, h_, kv_, hd_, causal, window, q_offset = case
+        q, k, v, do = bwd_inputs(gen, torch.float32, b_, sq, sk, h_, kv_,
+                                 hd_, dev)
+        res = check_bwd_case(q, k, v, do, causal=causal, window=window,
+                             q_offset=q_offset)
+        worst = max(worst, res["err"])
+        dead += res["dead_rows"]
+        faults.append(res["planted_q_offset_1"])
+    if not dead:
+        raise AssertionError("no backward case has a row that sees no key")
+    report["flash_attention_bwd"]["max_abs_err_f32_cases"] = worst
+    print(f"kernel flash_attention_bwd: {len(FLASH_BWD_CASES)} float32 cases "
+          f"(window 100, q_offset 256, {dead} rows that see no key, hd 64 and "
+          f"256) within {BWD_TOL[torch.float32]}: worst {worst:.3g}; bf16 "
+          f"and float32 at B {b} S {s} bit-identical between calls; q_offset "
+          f"shifted by one breaks every limit (smallest "
+          f"{min(faults + [e['planted_q_offset_1'] for e in out.values()]):.3g})")
+    return out
+
+
+def flash_lse_times(report: dict, gen, dev="cuda") -> dict:
+    """Rows 7a and 7b at the sequence forward's shapes (B 8 x S 1024, 32/8
+    heads of 128, causal): device time and wrapper time with the lse not
+    asked for and asked for, in turns; the output the same bits."""
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        row, path, kernel, _, _ = FLASH_ROWS[dtype]
+        q, k, v, _ = bwd_inputs(gen, dtype, 8, 1024, 1024, 32, 8, 128, dev)
+        if not torch.equal(fa.flash_attention(q, k, v),
+                           fa.flash_attention(q, k, v, return_lse=True)[0]):
+            raise AssertionError(f"{row}: asking for the lse changed the "
+                                 f"output")
+        iters = 100 if dtype == torch.bfloat16 else 20
+        t = dict(off_device_us=[], on_device_us=[], off_ms=[], on_ms=[])
+        for _ in range(2):
+            t["off_device_us"].append(device_us(
+                lambda: fa.flash_attention(q, k, v), kernel, calls=10))
+            t["on_device_us"].append(device_us(
+                lambda: fa.flash_attention(q, k, v, return_lse=True), kernel,
+                calls=10))
+            t["off_ms"].append(cuda_ms(lambda: fa.flash_attention(q, k, v),
+                                       iters=iters))
+            t["on_ms"].append(cuda_ms(
+                lambda: fa.flash_attention(q, k, v, return_lse=True),
+                iters=iters))
+        entry = {key: min(vals) for key, vals in t.items()}
+        report[row]["by_path"][path]["lse"] = entry
+        out[row] = entry
+        print(f"kernel {row} [lse off / on, B 8 S 1024]: device "
+              f"{entry['off_device_us']:.2f} / {entry['on_device_us']:.2f} "
+              f"us, wrapper {entry['off_ms']:.4f} / {entry['on_ms']:.4f} ms")
+        del q, k, v
+    return out
+
+
+def hold_train_launches(report: dict, path: str, counts: dict,
+                        want: dict) -> None:
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            raise AssertionError(f"{path}: {name} launched {n} times, "
+                                 f"expected {want.get(name, 0)}")
+    count_path(report, path, counts)
+
+
+def split_step(run, state, batch) -> dict:
+    """One more training step taken apart: CUDA events around the forward
+    (with the loss), the backward (the remat recompute included) and the
+    optimizer, and the profiler's device time of each flash kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = run.model
+    flat, treedef = tree.flatten(state.params)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ev[0].record()
+        leaves = [p.detach().requires_grad_() for p in flat]
+        loss, _ = transformer.loss_fn(cfg, tree.unflatten(treedef, leaves),
+                                      batch, run.remat)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, leaves)
+        ev[2].record()
+        adamw.adamw_update(run.optim, tree.unflatten(treedef, list(grads)),
+                           state.opt, state.params)
+        ev[3].record()
+        ev[3].synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    kernels = device_events(prof)
+    device = sum(us for _, us in kernels) / 1e3
+    flash = {key: sum(us for name, us in kernels if key in name) / 1e3
+             for key in (fa.WGMMA, *fa.BWD_KERNELS)}
+    return dict(forward_ms=ev[0].elapsed_time(ev[1]),
+                backward_ms=ev[1].elapsed_time(ev[2]),
+                optimizer_ms=ev[2].elapsed_time(ev[3]), wall_ms=wall,
+                device_ms=device, device_busy_share=device / wall,
+                kernel_launches=len(kernels), flash_device_ms=flash)
+
+
+def train_full(report: dict, dev="cuda"):
+    """granite-3-8b at full width, 4 layers, bf16, weights from seed 0,
+    ``remat="block"``: a warm-up step and 5 timed ones on one repeated
+    batch of the port's ``SyntheticLM`` (B 4 x S 1024); each layer a step
+    launches the forward kernel twice (the forward and the backward's remat
+    recompute) and the backward kernel once."""
+    layers, b, s, steps = (TRAIN[k] for k in ("layers", "batch", "seq",
+                                              "steps"))
+    cfg = dataclasses.replace(configs.get_config("granite-3-8b"),
+                              num_layers=layers)
+    run = RunConfig(model=cfg, shape=ShapeConfig("train", s, b, "train"),
+                    optim=OptimConfig(warmup_steps=1), remat="block")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = train_step.make_train_state(run, gen, device=dev)
+    n_params = sum(x.numel() for x in tree.leaves(state.params))
+    batch = to_device(SyntheticLM(cfg, b, s, seed=0).batch_at(0), dev)
+    step_fn = train_step.build_train_step(run)
+    t0 = time.perf_counter()
+    state, first = step_fn(state, batch)
+    first_loss = float(first["loss"])
+    warm_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, losses = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_attention=2 * layers * steps,
+                flash_attention_bwd=layers * steps)
+    hold_train_launches(report, "train", read_launches(), want)
+    with torch.no_grad():
+        final, _ = transformer.loss_fn(cfg, state.params, batch)
+    final_loss = float(final)
+    if not all(np.isfinite(losses)) or not final_loss < first_loss:
+        raise AssertionError(f"train: the loss on a repeated batch went from "
+                             f"{first_loss} to {losses} then {final_loss}")
+    if not all(torch.isfinite(x).all() for x in tree.leaves(state.params)):
+        raise AssertionError("train: non-finite parameters")
+    ms = statistics.median(times)
+    out = dict(layers=layers, params=n_params, batch=b, seq=s,
+               first_loss=first_loss, losses=losses, final_loss=final_loss,
+               warmup_step_s=warm_s, step_ms=times, ms_per_step=ms,
+               tokens_per_s=b * s / (ms / 1e3), peak_gb=peak,
+               flash_launches_per_layer_step=dict(forward=2, backward=1),
+               split=split_step(run, state, batch))
+    print("train:", json.dumps(out))
+    return run, state, batch, out
+
+
+def train_reduced_f32(report: dict, dev="cuda") -> dict:
+    """One step of reduced granite-3-8b in float32 on the card (the float32
+    flash kernels, forward and backward) against the same step on the CPU
+    (the plain versions) from the same state: loss, grad norm, parameters,
+    m and v within 1e-4."""
+    cfg = dataclasses.replace(configs.get_reduced("granite-3-8b"),
+                              dtype="float32")
+    run = RunConfig(model=cfg, shape=ShapeConfig("t", 64, 4, "train"),
+                    optim=OptimConfig(lr=3e-3, warmup_steps=1))
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    cpu_state = train_step.make_train_state(run, gen, device="cpu")
+    card_state = tree.tree_map(lambda x: x.to(dev), cpu_state)
+    data = SyntheticLM(cfg, 4, 64, seed=0).batch_at(0)
+    step_fn = train_step.build_train_step(run)
+    cpu_state, cpu_m = step_fn(cpu_state, to_device(data, "cpu"))
+    reset_launches()
+    card_state, card_m = step_fn(card_state, to_device(data, dev))
+    # the forward and the backward's remat recompute, then the backward
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_attention_f32=2 * cfg.num_layers,
+                flash_attention_bwd=cfg.num_layers)
+    counts = read_launches()
+    if fa.flash_attention.launches != 2 * cfg.num_layers:
+        raise AssertionError(f"train f32: {fa.flash_attention.launches} "
+                             f"forward launches, expected "
+                             f"{2 * cfg.num_layers}")
+    hold_train_launches(report, "train reduced f32", counts, want)
+    errs = {}
+    for key in ("loss", "grad_norm", "lr"):
+        torch.testing.assert_close(card_m[key].cpu(), cpu_m[key],
+                                   **TRAIN_REDUCED_TOL)
+        errs[key] = float((card_m[key].cpu() - cpu_m[key]).abs())
+    for name in ("params", "m", "v"):
+        a = (card_state.params if name == "params"
+             else getattr(card_state.opt, name))
+        c = (cpu_state.params if name == "params"
+             else getattr(cpu_state.opt, name))
+        errs[name] = 0.0
+        for x, y in zip(tree.leaves(a), tree.leaves(c)):
+            torch.testing.assert_close(x.cpu(), y, **TRAIN_REDUCED_TOL)
+            errs[name] = max(errs[name], float((x.cpu() - y).abs().max()))
+    print(f"train f32 reduced: one step on the card == on the CPU within "
+          f"{TRAIN_REDUCED_TOL}: {errs}")
+    return errs
+
+
+def train_pool(report: dict, run, state, batch, dev="cuda") -> dict:
+    """The AdamW moments of the first 2 layers (and the embedding) through
+    the pool: m and v each in a ``zero_bridge`` store over 4 logical memory
+    nodes (the loopback path, pages of 16,384 float32), on one control
+    plane with room for a failed node's pages on the survivors.  A step
+    that pulls them, updates and pushes them back gives parameters, m and
+    v bit-identical to the step that keeps them locally; a checkpoint of
+    the moments is saved, node 2 fails, ``rehome_after_failure`` restores
+    both stores from the checkpoint image, and the next pulls return it bit
+    for bit with no page homed on node 2.  Each pull launches one gather
+    and each push one scatter."""
+    layers, nodes, page = (TRAIN[k] for k in ("pool_layers", "pool_nodes",
+                                              "page_elems"))
+    failed = TRAIN["failed_node"]
+    cfg = dataclasses.replace(run.model, num_layers=layers)
+
+    def first(t):
+        return dict(t, layers=t["layers"][:layers])
+
+    def copy(t):
+        return tree.tree_map(torch.clone, t)
+
+    def same(a, b) -> bool:
+        return all(torch.equal(x, y)
+                   for x, y in zip(tree.leaves(a), tree.leaves(b)))
+
+    t_start = time.perf_counter()
+    params, m, v = (first(t) for t in (state.params, state.opt.m,
+                                       state.opt.v))
+    flat, treedef = tree.flatten(params)
+    leaves = [p.detach().requires_grad_() for p in flat]
+    loss, _ = transformer.loss_fn(cfg, tree.unflatten(treedef, leaves), batch)
+    grads = tree.unflatten(treedef, list(torch.autograd.grad(loss, leaves)))
+    del leaves, loss
+    n_pages = zero_bridge.TreePacker.plan(m, page).num_pages
+    ppn = -(-2 * n_pages // (nodes - 1))
+    cp = ControlPlane(nodes, ppn, 2 * n_pages)
+    reset_launches()
+    t0 = time.perf_counter()
+    m_store = zero_bridge.create_store(m, page_elems=page, cp=cp)
+    v_store = zero_bridge.create_store(v, page_elems=page, cp=cp)
+    sync(dev)
+    create_s = time.perf_counter() - t0
+    count = state.opt.count.clone()
+    p_local, m_local, v_local = copy(params), copy(m), copy(v)
+    adamw.adamw_update(run.optim, grads, adamw.AdamWState(m_local, v_local,
+                                                          count), p_local)
+    p_pool = copy(params)
+    t0 = time.perf_counter()
+    m_pulled = zero_bridge.pull_tree(m_store)
+    v_pulled = zero_bridge.pull_tree(v_store)
+    adamw.adamw_update(run.optim, grads, adamw.AdamWState(m_pulled, v_pulled,
+                                                          count), p_pool)
+    m_store = zero_bridge.push_tree(m_store, m_pulled)
+    v_store = zero_bridge.push_tree(v_store, v_pulled)
+    sync(dev)
+    step_s = time.perf_counter() - t0
+    del m_pulled, v_pulled
+    if not (same(p_pool, p_local) and same(zero_bridge.pull_tree(m_store),
+                                           m_local)
+            and same(zero_bridge.pull_tree(v_store), v_local)):
+        raise AssertionError("train pool: the step through the pool differs "
+                             "from the local step")
+    del p_pool, grads
+    ckpt_dir = ROOT / "build" / "smoke_checkpoint"
+    t0 = time.perf_counter()
+    try:
+        # float32 moments hardly compress: level 0 stores them
+        ckpt = CheckpointManager(str(ckpt_dir), keep=1, compression_level=0)
+        image = {"m": m_local, "v": v_local}
+        ckpt.save(1, image, extra={"step": 1})
+        restored, _ = ckpt.restore(image)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ckpt_s = time.perf_counter() - t0
+    home_before = np.bincount(cp.table().home.cpu().numpy()[:n_pages],
+                              minlength=nodes)
+    m_store = zero_bridge.rehome_after_failure(m_store, cp, failed,
+                                               restored["m"])
+    v_store = zero_bridge.rehome_after_failure(v_store, cp, failed,
+                                               restored["v"])
+    homes = cp.table().home
+    if bool((homes == failed).any()):
+        raise AssertionError(f"train pool: pages still homed on node "
+                             f"{failed}")
+    if not (same(zero_bridge.pull_tree(m_store), m_local)
+            and same(zero_bridge.pull_tree(v_store), v_local)):
+        raise AssertionError("train pool: a pull after the re-homing differs "
+                             "from the checkpoint image")
+    counts = read_launches()
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(gather_pages=6, scatter_pages=6)   # 6 pulls, 6 pushes
+    hold_train_launches(report, "train pool", counts, want)
+    out = dict(layers=layers, pages_per_tree=n_pages, pages_per_node=ppn,
+               pool_gb=2 * m_store.pool.nbytes / 1e9,
+               pages_on_node_before=home_before.tolist(),
+               pages_on_node_after=np.bincount(
+                   homes.cpu().numpy()[:n_pages], minlength=nodes).tolist(),
+               create_s=create_s, pool_step_s=step_s, checkpoint_s=ckpt_s,
+               seconds=time.perf_counter() - t_start,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    print("train pool:", json.dumps(out))
+    return out
+
+
+def train_phase(report: dict, dev="cuda") -> dict:
+    """Phase 11: the backward kernel, training at full width, the float32
+    step against the CPU, the moments through the pool."""
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(11)
+    out = dict(bwd=check_flash_bwd(report, gen, dev),
+               lse=flash_lse_times(report, gen, dev))
+    torch.cuda.empty_cache()
+    run, state, batch, out["full"] = train_full(report, dev)
+    out["pool"] = train_pool(report, run, state, batch, dev)
+    del state, batch
+    torch.cuda.empty_cache()
+    out["reduced_f32"] = train_reduced_f32(report, dev)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"train phase: {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch finds no CUDA device", file=sys.stderr)
@@ -2912,14 +3406,6 @@ def main() -> int:
     check_flash(report, gen)
     check_paged(report, gen)
     print(f"kernel checks: {time.perf_counter() - t_phase:.1f} s")
-    # The top-level numbers of a kernel are those of its headline
-    # measurement (the 8-node path's shapes where it runs there); ``by_path``
-    # keeps every measurement and path.
-    for name, r in report.items():
-        r.update({k: v for k, v in
-                  r["by_path"][KERNELS[name]["headline"]].items()
-                  if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                           "bound_by", "library_ms")})
     t_phase = time.perf_counter()
     cfg, params, gen = full_params()
     _, ctx = full_width(report, cfg, params, gen)
@@ -2948,7 +3434,17 @@ def main() -> int:
     programs_swap()
     control_phase(report, card)
     dense_phase(report)
+    train_phase(report)
     print(f"smoke: {time.perf_counter() - t0:.1f} s after the build started")
+
+    # The top-level numbers of a kernel are those of its headline
+    # measurement (the 8-node path's shapes where it runs there); ``by_path``
+    # keeps every measurement and path.
+    for name, r in report.items():
+        r.update({k: v for k, v in
+                  r["by_path"][KERNELS[name]["headline"]].items()
+                  if k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms")})
 
     for name, k in KERNELS.items():
         if not report[name]["launches"]:

@@ -73,6 +73,10 @@
 //  - The softmax: a row's values sit on a quad of lanes, its max reduced
 //    with __shfl_xor_sync over offsets 1 and 2; l is kept per lane and
 //    summed over the quad at the end.
+//  - The log-sum-exp for the backward (flash_attention_bwd.cu): an
+//    instantiation of its own writes each row's m ln 2 + log l (m in log2
+//    units) to lse [B, H, Sq] from the quad's first lane, -1e30 for a row
+//    that sees no key; the serving instantiation writes nothing more.
 //  - Why not wgmma: TF32 wgmma reads B from shared memory only K-major, so
 //    V ([keys, hd], hd contiguous) would need a transposed copy, and the
 //    halves of K and V would double float32 tiles that are already twice
@@ -94,6 +98,7 @@ namespace {
 
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -192,13 +197,15 @@ struct Tiles {
   static constexpr int kFloats = kQ + kStage + 2 * KEYS * QS + 2 * HDP * KP;
 };
 
-// NG: O's 8-column tiles that P V takes at once.
-template <int HDP, int WARPS, int NG, int KEYS>
+// NG: O's 8-column tiles that P V takes at once.  LSE: the instantiation
+// that writes the log-sum-exp (the other one is the serving forward's).
+template <int HDP, int WARPS, int NG, int KEYS, bool LSE>
 __global__ void __launch_bounds__(32 * WARPS)
     flash_fwd_tf32x3(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, float* __restrict__ o,
-                     int sq, int sk, int h, int kvh, int hd, int causal,
-                     int window, int q_offset, float scale) {
+                     float* __restrict__ lse, int sq, int sk, int h, int kvh,
+                     int hd, int causal, int window, int q_offset,
+                     float scale) {
   using T = Tiles<HDP, WARPS, KEYS>;
   constexpr int NT = HDP / 8;  // 8-column tiles of hd
   constexpr int kKeyTiles = KEYS / 8;
@@ -504,6 +511,11 @@ __global__ void __launch_bounds__(32 * WARPS)
     const long long at =
         (static_cast<long long>(b) * sq + row / g) * h + kh * g + row % g;
     const float inv = 1.f / fmaxf(l, 1e-30f);
+    // The row's log-sum-exp of its scaled scores, m (log2 units) + log l,
+    // for the backward; -1e30 for a row that sees no key.
+    if (LSE && t4 == 0)
+      lse[(static_cast<long long>(b) * h + kh * g + row % g) * sq + row / g] =
+          l > 0.f ? m_r[i] * kLn2 + logf(l) : kNegInf;
     float* out = o + at * hd + 2 * t4;
 #pragma unroll
     for (int n = 0; n < NT; ++n)
@@ -514,14 +526,16 @@ __global__ void __launch_bounds__(32 * WARPS)
 }
 
 template <int HDP, int WARPS, int NG, int KEYS>
-int launch(const float* q, const float* k, const float* v, float* o, int b,
-           int sq, int sk, int h, int kvh, int hd, int causal, int window,
-           int q_offset, float scale, cudaStream_t stream) {
+int launch(const float* q, const float* k, const float* v, float* o,
+           float* lse, int b, int sq, int sk, int h, int kvh, int hd,
+           int causal, int window, int q_offset, float scale,
+           cudaStream_t stream) {
   using T = Tiles<HDP, WARPS, KEYS>;
   constexpr int kRows = T::kRows;
   constexpr size_t smem = sizeof(float) * T::kFloats;
   static_assert(smem <= 232448, "more shared memory than a block can have");
-  auto kernel = flash_fwd_tf32x3<HDP, WARPS, NG, KEYS>;
+  auto kernel = lse != nullptr ? flash_fwd_tf32x3<HDP, WARPS, NG, KEYS, true>
+                               : flash_fwd_tf32x3<HDP, WARPS, NG, KEYS, false>;
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -530,8 +544,9 @@ int launch(const float* q, const float* k, const float* v, float* o, int b,
   }
   const int g = h / kvh;
   const dim3 grid((sq * g + kRows - 1) / kRows, kvh, b);
-  kernel<<<grid, 32 * WARPS, smem, stream>>>(q, k, v, o, sq, sk, h, kvh, hd,
-                                             causal, window, q_offset, scale);
+  kernel<<<grid, 32 * WARPS, smem, stream>>>(q, k, v, o, lse, sq, sk, h, kvh,
+                                             hd, causal, window, q_offset,
+                                             scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -540,9 +555,9 @@ int launch(const float* q, const float* k, const float* v, float* o, int b,
 // Packed arguments: q, k, v, o (float32, every pointer 16-byte aligned),
 // b, sq, sk, h, kvh, hd (a multiple of 8 up to 256), hd_pad (hd rounded up
 // to a multiple of 64), key_tile, causal, window, q_offset, scale,
-// stream.  A tiling that the wrapper names and the kernel was not built
-// for is refused: key_tile is 32 up to hd_pad 192 and 16 at 256 (shared
-// memory).
+// stream, lse (float32 [B, H, Sq], written when not null).  A tiling that
+// the wrapper names and the kernel was not built for is refused: key_tile
+// is 32 up to hd_pad 192 and 16 at 256 (shared memory).
 extern "C" int repro_flash_attention_tf32x3(const char* packed) {
   const PackedArgs a{packed};
   const float* q = a.ptr<const float>(0);
@@ -555,22 +570,23 @@ extern "C" int repro_flash_attention_tf32x3(const char* packed) {
             q_offset = a.i32(14);
   const float scale = a.f32(15);
   cudaStream_t s = static_cast<cudaStream_t>(a.ptr<void>(16));
+  float* lse = a.ptr<float>(17);
   if (hd % 8 != 0 || hd < 8 || hd > 256 || kvh < 1 || h % kvh != 0 ||
       hd_pad != (hd + 63) / 64 * 64 || key_tile != (hd_pad <= 192 ? 32 : 16))
     return static_cast<int>(cudaErrorInvalidValue);
   // 8 warps of 16 rows up to hd 128; above, shared memory holds 4.
   switch (hd_pad) {
     case 64:
-      return launch<64, 8, 8, 32>(q, k, v, o, b, sq, sk, h, kvh, hd, causal,
-                                  window, q_offset, scale, s);
+      return launch<64, 8, 8, 32>(q, k, v, o, lse, b, sq, sk, h, kvh, hd,
+                                  causal, window, q_offset, scale, s);
     case 128:
-      return launch<128, 8, 16, 32>(q, k, v, o, b, sq, sk, h, kvh, hd, causal,
-                                    window, q_offset, scale, s);
+      return launch<128, 8, 16, 32>(q, k, v, o, lse, b, sq, sk, h, kvh, hd,
+                                    causal, window, q_offset, scale, s);
     case 192:
-      return launch<192, 4, 8, 32>(q, k, v, o, b, sq, sk, h, kvh, hd, causal,
-                                   window, q_offset, scale, s);
+      return launch<192, 4, 8, 32>(q, k, v, o, lse, b, sq, sk, h, kvh, hd,
+                                   causal, window, q_offset, scale, s);
     default:
-      return launch<256, 4, 8, 16>(q, k, v, o, b, sq, sk, h, kvh, hd, causal,
-                                   window, q_offset, scale, s);
+      return launch<256, 4, 8, 16>(q, k, v, o, lse, b, sq, sk, h, kvh, hd,
+                                   causal, window, q_offset, scale, s);
   }
 }

@@ -65,7 +65,11 @@
 //    were.
 //  - Output: acc / max(l, 1e-30) as bf16 into the item's own Q buffer in
 //    the swizzled layout, then TMA stores, which leave out the rows past Sq
-//    and the columns past hd.
+//    and the columns past hd.  For the training path's backward
+//    (flash_attention_bwd.cu) an instantiation of its own also writes each
+//    row's log-sum-exp, m scale + log l in float32, to lse [B, H, Sq] from
+//    the lane that owns the row (-1e30 for a row that sees no key); the
+//    serving forward's instantiation writes nothing more than before.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -80,6 +84,7 @@ constexpr int kRows = 128;     // query rows (position, head) an item
 constexpr int kThreads = 384;  // 2 consumer warpgroups + 1 producer
 constexpr int kRowBytes = 128; // one swizzled row: 64 bf16
 constexpr float kNeg = -1e30f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 constexpr int kSmem = 232448;  // shared memory a block may take
 constexpr int kSlack = 1024 + 256;  // alignment, then the barriers
@@ -141,14 +146,17 @@ __device__ __forceinline__ Work work_item(int w, int per_tile, int tiles,
   return x;
 }
 
-template <int HD, int BC>
+// LSE: the instantiation that writes the log-sum-exp; the other one is
+// the serving forward's, which does no more work than before lse existed.
+template <int HD, int BC, bool LSE>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
-                    const __grid_constant__ CUtensorMap omap, int sq, int sk,
-                    int h, int kvh, int hb, int tiles, int items, int causal,
-                    int window, int q_offset, float scale_log2) {
+                    const __grid_constant__ CUtensorMap omap,
+                    float* __restrict__ lse, int sq, int sk, int h, int kvh,
+                    int hb, int tiles, int items, int causal, int window,
+                    int q_offset, float scale_log2) {
   using L = Layout<HD, BC>;
   constexpr int kCols = L::kCols;
   constexpr int kStages = L::kStages;
@@ -441,6 +449,17 @@ __global__ void __launch_bounds__(kThreads, 1)
         float lt = l[i] + __shfl_xor_sync(0xffffffffu, l[i], 1);
         lt += __shfl_xor_sync(0xffffffffu, lt, 2);
         inv[i] = 1.f / fmaxf(lt, 1e-30f);
+        // The row's log-sum-exp of its scaled scores, m scale + log l, for
+        // the backward, from the quad's first lane; -1e30 for a row that
+        // sees no key.  Rows past the item's or past Sq are not written.
+        if constexpr (LSE) {
+          const int r = r0 + 8 * i;
+          const int pos = x.p0 + r / hb;
+          if (quad == 0 && r < rows && pos < sq)
+            lse[(static_cast<long long>(x.b) * h + x.kh * g + x.hc * hb +
+                 r % hb) * sq + pos] =
+                lt > 0.f ? m[i] * scale_log2 * kLn2 + logf(lt) : kNeg;
+        }
       }
 #pragma unroll
       for (int n = 0; n < HD / 8; ++n)
@@ -498,13 +517,14 @@ CUresult make_map(CUtensorMap* map, const void* ptr, int hd, int n1, int n2,
 }
 
 template <int HD, int BC>
-int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int sk, int h, int kvh, int hd, int causal, int window,
-           int q_offset, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int b, int sq, int sk, int h, int kvh, int hd, int causal,
+           int window, int q_offset, float scale, cudaStream_t stream) {
   using L = Layout<HD, BC>;
+  auto kernel = lse != nullptr ? flash_fwd_wgmma<HD, BC, true>
+                               : flash_fwd_wgmma<HD, BC, false>;
   const cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma<HD, BC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::kBytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int g = h / kvh;
   int hb = g < kRows ? g : kRows;  // heads an item: divides g, <= kRows
@@ -532,8 +552,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   if (r == CUDA_SUCCESS) r = make_map(&vmap, vp, hd, kvh, sk_map, b, 1, BC);
   if (r == CUDA_SUCCESS) r = make_map(&omap, o, hd, h, sq, b, hb, pos_per);
   if (r != CUDA_SUCCESS) return 10000 + static_cast<int>(r);
-  flash_fwd_wgmma<HD, BC><<<blocks, kThreads, L::kBytes, stream>>>(
-      qmap, kmap, vmap, omap, sq, sk, h, kvh, hb, tiles,
+  kernel<<<blocks, kThreads, L::kBytes, stream>>>(
+      qmap, kmap, vmap, omap, lse, sq, sk, h, kvh, hb, tiles,
       static_cast<int>(items), causal, window, q_offset,
       scale * 1.4426950408889634f);
   return static_cast<int>(cudaGetLastError());
@@ -543,7 +563,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 
 // Packed arguments: q, k, v, o (bf16, contiguous, 16-byte aligned), b, sq,
 // sk, h, kvh, hd (a multiple of 8 up to 256), hd_pad, key_tile, causal,
-// window, q_offset, scale, stream.  hd_pad (hd rounded up to 64) and
+// window, q_offset, scale, stream, lse (float32 [B, H, Sq], written when
+// not null).  hd_pad (hd rounded up to 64) and
 // key_tile (keys per tile) name the instantiation, as the wrapper's
 // variant() chooses them.  Returns a cudaError_t, or 10000 + the CUresult
 // of a failed tensor-map encoding.
@@ -560,20 +581,21 @@ extern "C" int repro_flash_attention_wgmma(const char* packed) {
   const float scale = a.f32(15);
   void* stream = a.ptr<void>(16);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = a.ptr<float>(17);
   if (hd % 8 != 0 || hd < 8 || hd > hd_pad || hd_pad - hd >= 64 || kvh < 1 ||
       h % kvh != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (hd_pad == 64 && key_tile == 128)
-    return launch<64, 128>(q, k, v, o, b, sq, sk, h, kvh, hd, causal, window,
-                           q_offset, scale, s);
+    return launch<64, 128>(q, k, v, o, lse, b, sq, sk, h, kvh, hd, causal,
+                           window, q_offset, scale, s);
   if (hd_pad == 128 && key_tile == 128)
-    return launch<128, 128>(q, k, v, o, b, sq, sk, h, kvh, hd, causal, window,
-                            q_offset, scale, s);
+    return launch<128, 128>(q, k, v, o, lse, b, sq, sk, h, kvh, hd, causal,
+                            window, q_offset, scale, s);
   if (hd_pad == 192 && key_tile == 64)
-    return launch<192, 64>(q, k, v, o, b, sq, sk, h, kvh, hd, causal, window,
-                           q_offset, scale, s);
+    return launch<192, 64>(q, k, v, o, lse, b, sq, sk, h, kvh, hd, causal,
+                           window, q_offset, scale, s);
   if (hd_pad == 256 && key_tile == 64)
-    return launch<256, 64>(q, k, v, o, b, sq, sk, h, kvh, hd, causal, window,
-                           q_offset, scale, s);
+    return launch<256, 64>(q, k, v, o, lse, b, sq, sk, h, kvh, hd, causal,
+                           window, q_offset, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

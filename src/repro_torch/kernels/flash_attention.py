@@ -1,4 +1,5 @@
-"""Flash attention (forward): the sequence forward's attention kernel.
+"""Flash attention: the sequence forward's attention kernel and the
+training path's backward kernel.
 
 :func:`flash_attention` takes q ``[B, Sq, H, hd]`` and k, v
 ``[B, Sk, kv, hd]`` in float32 or bfloat16 and returns ``[B, Sq, H, hd]``
@@ -17,8 +18,20 @@ dtype alone (:func:`variant`), or raises:
   taken as hi·lo + lo·hi + hi·hi in float32, which holds the reference's
   float32 limit (2e-5) where one TF32 product would not.
 
-The wrapper counts every launch in ``flash_attention.launches`` and each
-kernel's in ``flash_attention.launches_by_kernel``.
+With ``return_lse`` either kernel also writes the float32 log-sum-exp of
+each row's scaled scores, ``[B, H, Sq]`` (-1e30 for a row that sees no
+key), which the backward reads; without it the kernel writes nothing more
+than before.  :func:`flash_attention_bwd` takes the forward's inputs, its
+output and lse and the output's gradient and returns dq, dk and dv with
+the reference's VJP arithmetic (``repro.models.flash._flash_bwd``): on a
+CPU tensor the plain version (:func:`repro_torch.models.flash.
+flash_bwd_ref`), on a CUDA tensor ``csrc/flash_attention_bwd.cu`` (three
+kernels: ``flash_bwd_delta``, ``flash_bwd_dkdv``, ``flash_bwd_dq``; no
+atomics, so two calls give the same bits).  The autograd function of
+:mod:`repro_torch.models.flash` ties the two together.
+
+Each wrapper counts its launches in ``<wrapper>.launches`` (one a call)
+and by kernel in ``<wrapper>.launches_by_kernel``.
 """
 from __future__ import annotations
 
@@ -27,16 +40,30 @@ import dataclasses
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.models.flash import attention_ref
+from repro_torch.models.flash import (NEG_INF, attention_lse_ref,
+                                      attention_ref, flash_bwd_ref)
 
 WGMMA = "flash_fwd_wgmma"          # the kernels' symbols, as profilers name them
 TF32X3 = "flash_fwd_tf32x3"
-_SOURCE = {WGMMA: "flash_attention_wgmma", TF32X3: "flash_attention"}
-# kernel -> its C function and packed arguments: 4 pointers, the sizes,
-# hd_pad and key tile, masks, scale, stream (csrc/flash_attention*.cu)
-_ENTRY = {WGMMA: ("repro_flash_attention_wgmma", "15qdq"),
-          TF32X3: ("repro_flash_attention_tf32x3", "15qdq")}
+BWD = "flash_bwd"                  # the backward, whose three kernels are
+BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
+_SOURCE = {WGMMA: "flash_attention_wgmma", TF32X3: "flash_attention",
+           BWD: "flash_attention_bwd"}
+# kernel -> its C function and packed arguments.  Forward: 4 pointers, the
+# sizes, hd_pad and key tile, masks, scale, stream, the lse pointer (0: not
+# written) (csrc/flash_attention*.cu).  Backward: 10 pointers, the sizes,
+# hd_pad, dtype, masks, scale, stream (csrc/flash_attention_bwd.cu).
+_ENTRY = {WGMMA: ("repro_flash_attention_wgmma", "15qdqq"),
+          TF32X3: ("repro_flash_attention_tf32x3", "15qdqq"),
+          BWD: ("repro_flash_attention_bwd", "21qdq")}
 _bound = {}               # kernel -> its C function, bound at its first launch
+
+
+def _bind(kernel: str):
+    fn = _bound.get(kernel)
+    if fn is None:
+        fn = _bound[kernel] = _build.bind(_SOURCE[kernel], *_ENTRY[kernel])
+    return fn
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,20 +97,8 @@ def variant(dtype: torch.dtype, hd: int) -> Variant:
                      f"bfloat16, got {dtype}")
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, window: int = 0,
-                    q_offset: int = 0) -> torch.Tensor:
-    """q: [B, Sq, H, hd]; k, v: [B, Sk, kv, hd] -> [B, Sq, H, hd].
-
-    ``hd`` is a multiple of 8 up to 256.  Any Sq and Sk: the kernels mask
-    the ragged edge themselves.  The reference's ``bq``, ``bk`` and
-    ``interpret`` choose the TPU's tiling and interpreter and change no
-    result; they do not exist here.  Forward only: while autograd records
-    and an input requires grad this raises (the backward comes with the
-    training slice).  Replaces ``repro.kernels.flash_attention.
-    flash_attention``.
-    """
-    what = "flash_attention"
+def _check_shapes(what: str, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> None:
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"{what}: q must be [B, Sq, H, hd] and k, v "
                          f"[B, Sk, kv, hd]")
@@ -97,32 +112,107 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if hd % 8 or not 8 <= hd <= 256:
         raise ValueError(f"{what}: head_dim {hd} must be a multiple of 8 up "
                          f"to 256")
+
+
+def _check_dtypes(what: str, *xs: torch.Tensor) -> None:
+    if any(x.dtype != xs[0].dtype for x in xs):
+        raise ValueError(f"{what}: q, k and v must share float32 or "
+                         f"bfloat16 (o and do too), got "
+                         f"{[x.dtype for x in xs]}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0, q_offset: int = 0,
+                    return_lse: bool = False):
+    """q: [B, Sq, H, hd]; k, v: [B, Sk, kv, hd] -> [B, Sq, H, hd], or
+    ``(out, lse)`` with ``return_lse`` (lse float32 ``[B, H, Sq]``).
+
+    ``hd`` is a multiple of 8 up to 256.  Any Sq and Sk: the kernels mask
+    the ragged edge themselves.  The reference's ``bq``, ``bk`` and
+    ``interpret`` choose the TPU's tiling and interpreter and change no
+    result; they do not exist here.  This wrapper is the forward alone:
+    while autograd records and an input requires grad it raises, and the
+    caller that wants gradients takes :func:`repro_torch.models.flash.
+    flash_attention`, the autograd function over this forward and
+    :func:`flash_attention_bwd`.  Replaces ``repro.kernels.flash_attention.
+    flash_attention``.
+    """
+    what = "flash_attention"
+    _check_shapes(what, q, k, v)
     if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
-        raise RuntimeError(f"{what}: forward only; the backward comes with "
-                           f"the training slice of the port")
+        raise RuntimeError(f"{what}: the forward alone; for the backward "
+                           f"call repro_torch.models.flash.flash_attention")
     if _build.on_cpu(what, q, k, v):
+        if return_lse:
+            return attention_lse_ref(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
         return attention_ref(q, k, v, causal=causal, window=window,
                              q_offset=q_offset)
-    if k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"{what}: q, k and v must share float32 or bfloat16,"
-                         f" got {q.dtype}, {k.dtype}, {v.dtype}")
+    _check_dtypes(what, q, k, v)
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
     plan = variant(q.dtype, hd)
     out = torch.empty_like(q)
+    lse = (torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel() == 0:
-        return out
-    fn = _bound.get(plan.kernel)
-    if fn is None:
-        fn = _bound[plan.kernel] = _build.bind(_SOURCE[plan.kernel],
-                                               *_ENTRY[plan.kernel])
+        return (out, lse.fill_(NEG_INF)) if return_lse else out
+    fn = _bind(plan.kernel)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq,
             sk, h, kv, hd)
     masks = (int(bool(causal)), int(window), int(q_offset), hd ** -0.5,
-             _build.stream_of(q))
+             _build.stream_of(q), 0 if lse is None else lse.data_ptr())
     _build.check(fn(*args, plan.hd_pad, plan.key_tile, *masks), what)
     flash_attention.launches += 1
     flash_attention.launches_by_kernel[plan.kernel] += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_kernel = {WGMMA: 0, TF32X3: 0}
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        q_offset: int = 0):
+    """The backward of :func:`flash_attention`: (dq, dk, dv) in the inputs'
+    dtype, from q, k, v, the forward's output ``o`` and ``lse``
+    (``flash_attention(..., return_lse=True)``) and ``do``, the gradient of
+    ``o``, with the same masks.  Float32 or bfloat16, hd a multiple of 8 up
+    to 256.  The counterpart of the reference's custom VJP
+    (``repro.models.flash._flash_bwd``), which the TPU runs in XLA ops.
+    """
+    what = "flash_attention_bwd"
+    _check_shapes(what, q, k, v)
+    b, sq, h, hd = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    if (tuple(o.shape) != tuple(q.shape) or tuple(do.shape) != tuple(q.shape)
+            or tuple(lse.shape) != (b, h, sq)):
+        raise ValueError(f"{what}: o {list(o.shape)} and do "
+                         f"{list(do.shape)} must be q's shape, lse "
+                         f"{list(lse.shape)} [B, H, Sq]")
+    if _build.on_cpu(what, q, k, v, o, do, lse):
+        return flash_bwd_ref(q, k, v, o, do, lse, causal=causal,
+                             window=window, q_offset=q_offset)
+    _check_dtypes(what, q, k, v, o, do)
+    if lse.dtype != torch.float32:
+        raise ValueError(f"{what}: lse must be float32, got {lse.dtype}")
+    plan = variant(q.dtype, hd)
+    dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
+    if dq.numel() == 0 and dk.numel() == 0:
+        return dq, dk, dv
+    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    fn = _bind(BWD)
+    ptrs = (q, k, v, o, do, lse, delta, dq, dk, dv)
+    _build.check(fn(*(x.data_ptr() for x in ptrs), b, sq, sk, h, kv, hd,
+                    plan.hd_pad, int(q.dtype == torch.bfloat16),
+                    int(bool(causal)), int(window), int(q_offset),
+                    hd ** -0.5, _build.stream_of(q)), what)
+    flash_attention_bwd.launches += 1
+    flash_attention_bwd.launches_by_kernel[BWD] += 1
+    return dq, dk, dv
+
+
+flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_kernel = {BWD: 0}

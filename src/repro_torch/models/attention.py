@@ -9,7 +9,7 @@ import torch
 
 from repro_torch.config import ModelConfig, SWA_ATTN
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.models import layers
+from repro_torch.models import flash, layers
 from repro_torch.models.layers import Param
 
 
@@ -45,13 +45,18 @@ def attend_train(cfg: ModelConfig, kind: str, q: torch.Tensor,
                  causal: bool = True) -> torch.Tensor:
     """Sequence attention by layer kind (full/global, or sliding-window with
     ``cfg.window_size``) through the flash kernel; the tensors' device picks
-    the kernel or its plain version.
+    the kernel or its plain version.  When an input requires grad (and
+    autograd records) it goes through the autograd function
+    :func:`repro_torch.models.flash.flash_attention`, whose backward is
+    the flash backward kernel; otherwise straight to the forward kernel.
 
     The reference's ``impl`` and ``chunk`` choose between two
     implementations of this one function (its Pallas kernel and its chunked
     XLA flash); the port has the one kernel, so neither exists here.
     """
     window = cfg.window_size if kind == SWA_ATTN else 0
+    if torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v)):
+        return flash.flash_attention(q, k, v, causal, window)
     return flash_attention(q, k, v, causal=causal, window=window)
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import Any
 
 import torch
+from torch.utils import checkpoint as _checkpoint
 
 from repro_torch.config import ATTENTION_KINDS, ModelConfig, SWA_ATTN
 from repro_torch.core.kvbridge import (decode_attention_ref,
@@ -119,23 +120,51 @@ def _logits(cfg: ModelConfig, params: Any, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
-def forward(cfg: ModelConfig, params: Any,
-            batch: dict) -> tuple[torch.Tensor, dict]:
+def forward(cfg: ModelConfig, params: Any, batch: dict,
+            remat: str = "block") -> tuple[torch.Tensor, dict]:
     """Sequence forward: batch ``{"tokens": i32[B, S]}`` (or ``"embeds"``
     [B, S, d]) -> (logits f32[B, S, V], aux metrics).
 
     Every attention layer runs the flash kernel (causal, windowed on
-    sliding-window layers).  The reference scans stacked layer periods and
-    takes ``remat`` (activation checkpointing for its backward) and
-    ``attn_impl`` (Pallas kernel or chunked XLA flash); the port loops over
-    ``params["layers"]``, runs forward only and has one kernel, so neither
-    argument exists here.  ``aux`` stays empty: only MoE layers fill it.
+    sliding-window layers).  ``remat`` is the reference's activation
+    checkpointing: with anything but ``"none"``, while autograd records,
+    each layer runs under ``torch.utils.checkpoint`` (non-reentrant), so
+    the backward recomputes a layer's activations from its input, as the
+    reference's ``jax.checkpoint`` of its scanned period body does (a
+    period of one layer for the dense configs; the port loops over
+    ``params["layers"]`` and checkpoints layer by layer, which gives the
+    same gradients).  Without grad it changes nothing.  The reference's
+    ``attn_impl`` picks its Pallas kernel or its chunked XLA flash; the port
+    has one kernel, so the argument does not exist here.  ``aux`` stays
+    empty: only MoE layers fill it.
     """
     _check_supported(cfg)
     x = _embed_inputs(cfg, params, batch)
+    remat_on = remat != "none" and torch.is_grad_enabled()
     for kind, bp in zip(cfg.layers, params["layers"]):
-        x = apply_block(cfg, kind, bp, x)
+        if remat_on:
+            x = _checkpoint.checkpoint(apply_block, cfg, kind, bp, x,
+                                       use_reentrant=False)
+        else:
+            x = apply_block(cfg, kind, bp, x)
     return _logits(cfg, params, x), {}
+
+
+def loss_fn(cfg: ModelConfig, params: Any, batch: dict,
+            remat: str = "block") -> tuple[torch.Tensor, dict]:
+    """Masked mean next-token NLL over ``labels >= 0`` -> (loss, {"loss",
+    "tokens"}), the reference's ``loss_fn`` (float32 log-softmax of the
+    float32 logits; ``tokens`` the int32 count of labelled positions, at
+    least 1)."""
+    logits, _ = forward(cfg, params, batch, remat)
+    labels = batch["labels"]
+    valid = labels >= 0
+    safe = torch.where(valid, labels, 0)
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
+    denom = torch.clamp(valid.sum(dtype=torch.int32), min=1)
+    loss = torch.sum(nll * valid) / denom
+    return loss, {"loss": loss, "tokens": denom}
 
 
 # ---------------------------------------------------------------------------

@@ -15,6 +15,7 @@ from repro_torch.kernels import bridge_gather as bg
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import stream as st
+from repro_torch.models import flash as tflash
 from repro_torch.models.flash import attention_ref
 
 
@@ -785,3 +786,105 @@ def test_paged_kernel_dense_config_shapes_match_plain(cuda, h, kv, hd):
     torch.testing.assert_close(got.float(), want.float(), rtol=0, atol=3e-2)
     assert torch.equal(got, again)
     assert not got[0].any()
+
+
+# flash backward: (B, Sq, Sk, H, kv, hd, causal, window, q_offset)
+FLASH_BWD = [
+    (2, 256, 256, 32, 8, 128, True, 0, 0),       # granite's heads
+    (1, 200, 230, 8, 2, 64, True, 50, -20),      # window, dead rows, ragged
+]
+
+
+def _bwd_inputs(gen, dtype, b, sq, sk, h, kv, hd, device):
+    return [torch.randn(shape, generator=gen, device=device).to(dtype)
+            for shape in ((b, sq, h, hd), (b, sk, kv, hd), (b, sk, kv, hd),
+                          (b, sq, h, hd))]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,sq,sk,h,kv,hd,causal,window,q_offset", FLASH_BWD)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kv, hd,
+                                        causal, window, q_offset):
+    """dq, dk and dv within 2e-4 (float32) or 2e-2 of the largest (bf16)
+    of the plain version, one launch a call, bit-identical between calls
+    (no atomics), zero for rows that see no key."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(31)
+    q, k, v, do = _bwd_inputs(gen, dtype, b, sq, sk, h, kv, hd, cuda)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    before = fa.flash_attention_bwd.launches
+    got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    again = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
+    assert fa.flash_attention_bwd.launches == before + 2
+    want = tflash.flash_bwd_ref(q, k, v, o, do, lse, **kw)
+    for g_, a_, w_ in zip(got, again, want):
+        assert g_.dtype == dtype and torch.equal(g_, a_)
+        err = float((g_.float() - w_.float()).abs().max())
+        limit = 2e-4 if dtype == torch.float32 else \
+            2e-2 * float(w_.float().abs().max())
+        assert err <= limit, err
+    if q_offset < 0:
+        assert not got[0][:, :-q_offset].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_forward_lse_leaves_the_output_unchanged(cuda, dtype):
+    """Asking for the log-sum-exp changes no bit of the output; the lse is
+    the plain version's within float32 rounding, -1e30 on dead rows."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(32)
+    for b, sq, sk, h, kv, hd, causal, window, q_offset in FLASH:
+        q, k, v, _ = _bwd_inputs(gen, dtype, b, sq, sk, h, kv, hd, cuda)
+        kw = dict(causal=causal, window=window, q_offset=q_offset)
+        plain = fa.flash_attention(q, k, v, **kw)
+        o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+        assert torch.equal(o, plain)
+        _, want = tflash.attention_lse_ref(q, k, v, **kw)
+        torch.testing.assert_close(lse, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_kernel_replays_in_a_cuda_graph(cuda):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(33)
+    q, k, v, do = _bwd_inputs(gen, torch.bfloat16, 1, 128, 128, 8, 2, 128,
+                              cuda)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    want = fa.flash_attention_bwd(q, k, v, o, do, lse)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fa.flash_attention_bwd(q, k, v, o, do, lse)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fa.flash_attention_bwd(q, k, v, o, do, lse)
+    for x in out:
+        x.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for g_, w_ in zip(out, want):
+        assert torch.equal(g_, w_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_autograd_launches_both_kernels(cuda, dtype):
+    """The autograd function on CUDA tensors: one forward and one backward
+    launch, the gradients the backward wrapper gives."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(34)
+    q, k, v, do = _bwd_inputs(gen, dtype, 1, 96, 96, 4, 2, 64, cuda)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    fwd, bwd = fa.flash_attention.launches, fa.flash_attention_bwd.launches
+    out = tflash.flash_attention(*leaves, causal=True, window=0, q_offset=0)
+    out.backward(do)
+    assert fa.flash_attention.launches == fwd + 1
+    assert fa.flash_attention_bwd.launches == bwd + 1
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    for got, want in zip((x.grad for x in leaves),
+                         fa.flash_attention_bwd(q, k, v, o, do, lse)):
+        assert torch.equal(got, want)
