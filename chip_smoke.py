@@ -147,15 +147,20 @@ prints no result):
               round the pull pulled, at the config's heads (16/8 of 256,
               36/4 of 128); and a pull that loses a page must break the
               5e-2 limit;
-11. train   — the training path: the flash backward kernel against its
-              plain version (bf16 at the training shapes, B 4 x S 1024,
-              32/8 heads of 128, causal, within 2e-2 of the largest
-              gradient; float32 there and at the mask and head-size cases,
-              a row that sees no key among them, within 2e-4), bit-identical
-              between calls, a planted fault (q_offset shifted by one) that
-              must break every limit, timed beside its bound (the
-              backward's five products, 2.5 times the forward's operations)
-              and the library's backward through SDPA; the forward kernels
+11. train   — the training path: the flash backward kernels against
+              their plain version (the bf16 wgmma kernel and the float32
+              CUDA-core kernel at the training shapes, B 4 x S 1024, 32/8
+              heads of 128, causal, and both dtypes at the mask and
+              head-size cases, a row that sees no key among them; bf16
+              within 2e-2 of the largest gradient, float32 within 2e-4;
+              each call must launch the kernel the (dtype, hd) table
+              names), bit-identical between calls, a planted fault
+              (q_offset shifted by one; the causal mask where q_offset
+              moves no mask) that must break every limit, timed
+              in turns with the library's backward through SDPA beside its
+              bound (the backward's five products, 2.5 times the forward's
+              operations) and the kernels' seven-product floor, device time
+              by kernel; the forward kernels
               at the sequence forward's shapes with the lse not asked for
               and asked for; granite-3-8b at full width on 4 of its 40
               layers in bf16 (weights from seed 0, remat "block"): a warm-up
@@ -314,12 +319,19 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/stream.cu",
         replaces="src/repro/kernels/stream.py:62", paths=(),
         headline="triad float32"),
-    # no pallas_call: the counterpart of the reference's XLA custom VJP
+    # no pallas_call: the counterpart of the reference's XLA custom VJP;
+    # one wrapper, two kernels (bwd_variant: bf16 up to hd 128 on the tensor
+    # cores, float32 on the CUDA cores)
     "flash_attention_bwd": dict(
-        fns=(fa.flash_attention_bwd,),
-        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        fns=(fa.flash_attention_bwd,), variant=fa.BWD_WGMMA,
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
         replaces="src/repro/models/flash.py:176", paths=(),
         headline="train bf16"),
+    "flash_attention_bwd_f32": dict(
+        fns=(fa.flash_attention_bwd,), variant=fa.BWD,
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+        replaces="src/repro/models/flash.py:176", paths=(),
+        headline="train f32"),
 }
 
 
@@ -338,21 +350,30 @@ def cuda_ms(fn, iters: int = 200, warmup: int = 10) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_us(fn, kernel: str, calls: int = 20, tries: int = 5) -> float:
+def device_us(fn, kernel: str, calls: int = 20,
+              patience_s: float = 90.0) -> float:
     """Mean device time, in us, of the kernel whose name holds ``kernel``
     (any operation on the card for "") over ``calls`` calls of ``fn``, from
     the profiler: the kernel alone, without the host's issue time that
-    back-to-back calls may wait on.  Each call must run it once.  The
-    profiler now and then reports fewer kernels than ran (seen on the H100:
-    49 of 50, and 0 of 20 twice in a row); such a profile is taken again,
-    up to ``tries`` in all, and the count must match in the one whose time
-    is kept."""
+    back-to-back calls may wait on.  Each call must run it once, and the
+    count must match in the profile whose time is kept.  The profiler now
+    and then reports fewer kernels than ran (seen on the H100: 49 of 50;
+    and late in a whole smoke, never in a fresh process, profiles that
+    hold no operation on the card at all, up to ten in a row over ten
+    seconds).  A short profile is reported and taken again, for a named
+    kernel after 2,000 small operations that open it (after which most
+    such profiles held the kernels), until ``patience_s`` seconds have
+    passed."""
     from torch.profiler import ProfilerActivity, profile
+    filler = torch.zeros(1, device="cuda") if kernel else None
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    deadline = time.perf_counter() + patience_s
+    for attempt in itertools.count():
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
+            for _ in range(2000 if attempt and kernel else 0):
+                filler.add_(1)
             for _ in range(calls):
                 fn()
             torch.cuda.synchronize()
@@ -362,10 +383,13 @@ def device_us(fn, kernel: str, calls: int = 20, tries: int = 5) -> float:
         launches = sum(e.count for e in events)
         if launches == calls:
             return sum(e.self_device_time_total for e in events) / launches
+        if time.perf_counter() > deadline:
+            raise AssertionError(f"profiled {launches} launches of {kernel} "
+                                 f"in {calls} calls, {attempt + 1} profiles "
+                                 f"running over {patience_s} s")
         print(f"device_us: profiled {launches} launches of {kernel} in "
               f"{calls} calls; profiling again", file=sys.stderr)
-    raise AssertionError(f"profiled {launches} launches of {kernel} in "
-                         f"{calls} calls, {tries} profiles running")
+        time.sleep(0.2)
 
 
 def graph_ms(fn, calls: int = 100, replays: int = 20) -> float:
@@ -2930,14 +2954,19 @@ TRAIN = dict(layers=4, batch=4, seq=1024, steps=5, pool_layers=2,
 # bf16 over the largest gradient (p and ds are rounded to bf16 where the
 # plain version rounds them, the sums in another order).
 BWD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
-# float32 cases beside the training shape: (B, Sq, Sk, H, kv, hd, causal,
-# window, q_offset); the third leaves its first 40 rows no key to see.
+# cases beside the training shape, in bf16 and float32: (B, Sq, Sk, H, kv,
+# hd, causal, window, q_offset); the third leaves its first 40 rows no key
+# to see.
 FLASH_BWD_CASES = [
     (1, 300, 300, 32, 8, 128, True, 100, 0),
     (1, 128, 384, 32, 8, 128, True, 0, 256),
     (1, 64, 64, 4, 2, 64, True, 16, -40),
     (1, 256, 256, 4, 1, 64, True, 0, 0),
     (1, 256, 256, 4, 1, 256, True, 0, 0),
+    (1, 200, 260, 32, 8, 120, True, 0, 60),    # h2o-danube's head dim
+    (1, 192, 192, 8, 8, 128, True, 0, -30),    # g 1, rows that see no key
+    (1, 100, 100, 36, 4, 128, True, 0, 0),     # starcoder2's g 9: padding
+    (1, 130, 70, 8, 2, 64, False, 0, 0),       # bidirectional, ragged
 ]
 # the reduced float32 step on the card against the same step on the CPU
 TRAIN_REDUCED_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -2961,15 +2990,22 @@ def bwd_error(got, want) -> float:
 
 def check_bwd_case(q, k, v, do, **kw) -> dict:
     """One backward call against its plain version on the same inputs:
-    one launch, within its limit, bit-identical on a second call, zero
-    gradients for rows that see no key; and with q_offset shifted by one
-    (every query also sees the next key) the limit must break."""
+    one launch of the kernel the (dtype, hd) table names, within its limit,
+    bit-identical on a second call, zero gradients for rows that see no
+    key; and with a planted fault the limit must break: q_offset shifted by
+    one (every query also sees the next key), or, where q_offset moves no
+    mask (bidirectional, no window), the causal mask."""
     o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
-    before = fa.flash_attention_bwd.launches
+    kernel = fa.bwd_variant(q.dtype, q.shape[-1]).kernel
+    before = (fa.flash_attention_bwd.launches,
+              fa.flash_attention_bwd.launches_by_kernel[kernel])
     got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     again = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
-    if fa.flash_attention_bwd.launches != before + 2:
-        raise AssertionError("flash_attention_bwd: not one launch a call")
+    if (fa.flash_attention_bwd.launches,
+            fa.flash_attention_bwd.launches_by_kernel[kernel]) != (
+                before[0] + 2, before[1] + 2):
+        raise AssertionError(f"flash_attention_bwd: not one launch of "
+                             f"{kernel} a call")
     if not all(torch.equal(x, y) for x, y in zip(got, again)):
         raise AssertionError(f"flash_attention_bwd {list(q.shape)} {kw}: two "
                              f"calls differ")
@@ -2986,30 +3022,40 @@ def check_bwd_case(q, k, v, do, **kw) -> dict:
     if got[0][:, dead.to(q.device)].any():
         raise AssertionError("flash_attention_bwd: a row that sees no key "
                              "has a nonzero dq")
-    shifted = dict(kw, q_offset=kw.get("q_offset", 0) + 1)
+    if kw.get("causal", True) or kw.get("window", 0) > 0:
+        shifted = dict(kw, q_offset=kw.get("q_offset", 0) + 1)
+    else:
+        shifted = dict(kw, causal=True)
     fault = bwd_error(fa.flash_attention_bwd(q, k, v, o, do, lse, **shifted),
                       want)
     if fault <= tol:
-        raise AssertionError(f"flash_attention_bwd with q_offset shifted by "
-                             f"one moved the gradients by only {fault:.3g}: "
-                             f"the check would pass it")
-    return dict(err=err, planted_q_offset_1=fault, dead_rows=int(dead.sum()),
+        raise AssertionError(f"flash_attention_bwd with {shifted} moved the "
+                             f"gradients by only {fault:.3g}: the check would "
+                             f"pass it")
+    return dict(err=err, planted_fault=fault, dead_rows=int(dead.sum()),
                 o=o, lse=lse, want=want)
 
 
 def check_flash_bwd(report: dict, gen, dev="cuda") -> dict:
-    """The backward kernel at the training shapes (B 4 x S 1024, 32/8 heads
-    of 128, causal) in bf16, timed beside its bound (the backward's five
-    products over the visible pairs, 2.5 times the forward's operations,
-    at the bf16 tensor cores' peak; the float32 run at the CUDA cores'),
-    its plain version and the library's backward (``torch.autograd.grad``
-    through ``scaled_dot_product_attention``, shown for comparison); then
-    float32 at the mask and head-size cases."""
+    """The backward kernels at the training shapes (B 4 x S 1024, 32/8
+    heads of 128, causal): bf16 (the wgmma kernel) and float32 (the CUDA
+    cores'), each timed in turns with the library's backward
+    (``torch.autograd.grad`` through ``scaled_dot_product_attention``, shown
+    for comparison; five rounds, medians), beside its bound (the backward's
+    five products over the visible pairs, 2.5 times the forward's
+    operations, at the bf16 tensor cores' peak; the float32 run at the CUDA
+    cores'), the seven-product floor of the kernels' design (s and dp
+    computed in both passes), its plain version and its device time by
+    kernel; then both dtypes at the mask and head-size cases."""
     b, s, h, kv, hd = TRAIN["batch"], TRAIN["seq"], 32, 8, 128
     pairs = int(visible_mask(s, s, True, 0, 0).sum())
     out = {}
-    for dtype, path, rate in ((torch.bfloat16, "train bf16", BF16_FLOP_PER_S),
-                              (torch.float32, "train f32", F32_FLOP_PER_S)):
+    for dtype, name, path, rate, iters in (
+            (torch.bfloat16, "flash_attention_bwd", "train bf16",
+             BF16_FLOP_PER_S, 50),
+            (torch.float32, "flash_attention_bwd_f32", "train f32",
+             F32_FLOP_PER_S, 3)):
+        kernels = fa.BWD_KERNELS[fa.bwd_variant(dtype, hd).kernel]
         q, k, v, do = bwd_inputs(gen, dtype, b, s, s, h, kv, hd, dev)
         res = check_bwd_case(q, k, v, do)
         o, lse = res["o"], res["lse"]
@@ -3027,41 +3073,56 @@ def check_flash_bwd(report: dict, gen, dev="cuda") -> dict:
             return torch.autograd.grad(ot, (qt, kt, vt), dot,
                                        retain_graph=True)
 
-        dev_us = sum(device_us(call, name, calls=5)
-                     for name in fa.BWD_KERNELS)
+        turns = {}
+        in_turns(turns, f"{name} [{path}]", call, library, iters=iters)
+        by_kernel = {kn: device_us(call, kn, calls=5) for kn in kernels}
+        flops = 10 * b * h * hd * pairs
         entry = record(
-            report, "flash_attention_bwd", path, err=res["err"],
-            ms=cuda_ms(call, iters=10, warmup=2),
+            report, name, path, err=res["err"], ms=turns["ms"],
             plain_ms=cuda_ms(lambda: flash_bwd_ref(q, k, v, o, do, lse),
                              iters=3, warmup=1),
-            library_ms=cuda_ms(library, iters=20, warmup=3),
+            library_ms=turns["library_ms"],
             nbytes=4 * q.nbytes + 4 * k.nbytes + lse.nbytes,
-            flops=10 * b * h * hd * pairs, flop_rate=rate,
-            note=f", B {b} S {s} causal {str(dtype)[6:]}", dev_us=dev_us)
-        entry["planted_q_offset_1"] = res["planted_q_offset_1"]
-        entry["device_us_by_kernel"] = {
-            name: device_us(call, name, calls=5) for name in fa.BWD_KERNELS}
+            flops=flops, flop_rate=rate,
+            note=f", B {b} S {s} causal {str(dtype)[6:]}",
+            dev_us=sum(by_kernel.values()))
+        entry.update(turns, planted_fault=res["planted_fault"],
+                     device_us_by_kernel=by_kernel,
+                     floor_ms=7 / 5 * flops / rate * 1e3)
+        entry["bound_share"] = entry["bound_ms"] / entry["ms"]
+        entry["floor_share"] = entry["floor_ms"] / entry["ms"]
+        print(f"kernel {name} [{path}]: device us by kernel "
+              f"{json.dumps({kn: round(us, 2) for kn, us in by_kernel.items()})}"
+              f"; {entry['bound_share']:.4f} of the five-product bound "
+              f"{entry['bound_ms']:.6f} ms, {entry['floor_share']:.4f} of the "
+              f"seven-product floor {entry['floor_ms']:.6f} ms")
         out[path] = entry
         del q, k, v, do, o, lse, res, qt, kt, vt, ot, dot
-    worst, dead, faults = 0.0, 0, []
-    for case in FLASH_BWD_CASES:
-        b_, sq, sk, h_, kv_, hd_, causal, window, q_offset = case
-        q, k, v, do = bwd_inputs(gen, torch.float32, b_, sq, sk, h_, kv_,
-                                 hd_, dev)
-        res = check_bwd_case(q, k, v, do, causal=causal, window=window,
-                             q_offset=q_offset)
-        worst = max(worst, res["err"])
-        dead += res["dead_rows"]
-        faults.append(res["planted_q_offset_1"])
-    if not dead:
-        raise AssertionError("no backward case has a row that sees no key")
-    report["flash_attention_bwd"]["max_abs_err_f32_cases"] = worst
-    print(f"kernel flash_attention_bwd: {len(FLASH_BWD_CASES)} float32 cases "
-          f"(window 100, q_offset 256, {dead} rows that see no key, hd 64 and "
-          f"256) within {BWD_TOL[torch.float32]}: worst {worst:.3g}; bf16 "
-          f"and float32 at B {b} S {s} bit-identical between calls; q_offset "
-          f"shifted by one breaks every limit (smallest "
-          f"{min(faults + [e['planted_q_offset_1'] for e in out.values()]):.3g})")
+    faults = [e["planted_fault"] for e in out.values()]
+    for dtype, name in ((torch.bfloat16, "flash_attention_bwd"),
+                        (torch.float32, "flash_attention_bwd_f32")):
+        worst, dead = 0.0, 0
+        for case in FLASH_BWD_CASES:
+            b_, sq, sk, h_, kv_, hd_, causal, window, q_offset = case
+            q, k, v, do = bwd_inputs(gen, dtype, b_, sq, sk, h_, kv_, hd_,
+                                     dev)
+            res = check_bwd_case(q, k, v, do, causal=causal, window=window,
+                                 q_offset=q_offset)
+            worst = max(worst, res["err"])
+            dead += res["dead_rows"]
+            faults.append(res["planted_fault"])
+        if not dead:
+            raise AssertionError("no backward case has a row that sees no "
+                                 "key")
+        report[name]["max_abs_err_cases"] = worst
+        print(f"kernel {name}: {len(FLASH_BWD_CASES)} {str(dtype)[6:]} cases "
+              f"(window 100, q_offset 256 / 60 / -30 / -40, {dead} rows "
+              f"that see no key, hd 64, 120, 128 and 256, g 1 to 9, "
+              f"bidirectional) within {BWD_TOL[dtype]}: worst {worst:.3g}")
+    print(f"kernel flash_attention_bwd: bf16 and float32 bit-identical "
+          f"between calls; the planted faults (q_offset shifted by one, the "
+          f"causal mask on the bidirectional case) break every limit "
+          f"(smallest {min(faults):.3g})")
     return out
 
 
@@ -3136,7 +3197,7 @@ def split_step(run, state, batch) -> dict:
     kernels = device_events(prof)
     device = sum(us for _, us in kernels) / 1e3
     flash = {key: sum(us for name, us in kernels if key in name) / 1e3
-             for key in (fa.WGMMA, *fa.BWD_KERNELS)}
+             for key in (fa.WGMMA, *fa.BWD_KERNELS[fa.BWD_WGMMA])}
     return dict(forward_ms=ev[0].elapsed_time(ev[1]),
                 backward_ms=ev[1].elapsed_time(ev[2]),
                 optimizer_ms=ev[2].elapsed_time(ev[3]), wall_ms=wall,
@@ -3221,7 +3282,7 @@ def train_reduced_f32(report: dict, dev="cuda") -> dict:
     # the forward and the backward's remat recompute, then the backward
     want = dict.fromkeys(KERNELS, 0)
     want.update(flash_attention_f32=2 * cfg.num_layers,
-                flash_attention_bwd=cfg.num_layers)
+                flash_attention_bwd_f32=cfg.num_layers)
     counts = read_launches()
     if fa.flash_attention.launches != 2 * cfg.num_layers:
         raise AssertionError(f"train f32: {fa.flash_attention.launches} "

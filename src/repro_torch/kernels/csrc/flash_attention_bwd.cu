@@ -1,4 +1,6 @@
-// Flash attention, backward, float32 or bf16 (sm_90a).
+// Flash attention, backward, float32, and bf16 at hd 136 to 256, on the
+// CUDA cores (sm_90a).  The wrapper's bwd_variant table sends bf16 up to
+// hd 128 to flash_attention_bwd_wgmma.cu (the tensor cores) instead.
 //
 // The counterpart of the reference's custom VJP of its chunked flash
 // attention (src/repro/models/flash.py, _flash_bwd), which the TPU runs in
@@ -43,7 +45,7 @@
 //  to a multiple of 64 (HDP), so loops are fixed at compile time.
 //
 // The products run on the CUDA cores, not the tensor cores: a simple
-// kernel whose arithmetic is the reference's, first.  Its bound is the
+// kernel whose arithmetic is the reference's.  Its bound is the
 // backward's operations (5 products over the visible pairs, 2.5 times the
 // forward's) at the card's peak for the inputs' type; it recomputes s
 // and dp once more for dq (7 products).

@@ -77,6 +77,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// Copy `bytes` (a multiple of 16) of contiguous memory at `src` into shared
+// memory at `dst`, both 16-byte aligned; completion is counted on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // Copy `src` in shared memory to the box at (c0, c1, c2, c3) of the tensor
 // `map` describes; the part of the box outside the tensor is not written.
 // Writes of the generic proxy to `src` must be fenced first (fence_async).
@@ -277,6 +288,12 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[128],
 #undef HOPPER_D64
 #undef HOPPER_D96
 #undef HOPPER_D128
+
+// Wait until `threads` threads (whole warps) have reached barrier `id`
+// (1 to 15; 0 is __syncthreads').
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
 
 template <uint32_t N>
 __device__ __forceinline__ void setmaxnreg_inc() {

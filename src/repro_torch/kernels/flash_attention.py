@@ -25,10 +25,19 @@ than before.  :func:`flash_attention_bwd` takes the forward's inputs, its
 output and lse and the output's gradient and returns dq, dk and dv with
 the reference's VJP arithmetic (``repro.models.flash._flash_bwd``): on a
 CPU tensor the plain version (:func:`repro_torch.models.flash.
-flash_bwd_ref`), on a CUDA tensor ``csrc/flash_attention_bwd.cu`` (three
-kernels: ``flash_bwd_delta``, ``flash_bwd_dkdv``, ``flash_bwd_dq``; no
-atomics, so two calls give the same bits).  The autograd function of
-:mod:`repro_torch.models.flash` ties the two together.
+flash_bwd_ref`), on a CUDA tensor one of two kernels, chosen by the dtype
+and the head dim alone (:func:`bwd_variant`), each three kernels with no
+atomics, so two calls give the same bits:
+
+- bfloat16 up to hd 128: ``csrc/flash_attention_bwd_wgmma.cu``
+  (``flash_bwd_wgmma_delta``, ``_dkdv``, ``_dq``), wgmma on bf16 tiles
+  staged by TMA, the rows tiled as :func:`bwd_tiles` says;
+- float32, and bfloat16 beyond hd 128: ``csrc/flash_attention_bwd.cu``
+  (``flash_bwd_delta``, ``flash_bwd_dkdv``, ``flash_bwd_dq``) on the CUDA
+  cores.
+
+The autograd function of :mod:`repro_torch.models.flash` ties the forward
+and the backward together.
 
 Each wrapper counts its launches in ``<wrapper>.launches`` (one a call)
 and by kernel in ``<wrapper>.launches_by_kernel``.
@@ -45,16 +54,23 @@ from repro_torch.models.flash import (NEG_INF, attention_lse_ref,
 
 WGMMA = "flash_fwd_wgmma"          # the kernels' symbols, as profilers name them
 TF32X3 = "flash_fwd_tf32x3"
-BWD = "flash_bwd"                  # the backward, whose three kernels are
-BWD_KERNELS = ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")
+BWD_WGMMA = "flash_bwd_wgmma"      # the backward on the tensor cores (bf16)
+BWD = "flash_bwd"                  # and on the CUDA cores, whose kernels are
+BWD_KERNELS = {BWD_WGMMA: ("flash_bwd_wgmma_delta", "flash_bwd_wgmma_dkdv",
+                           "flash_bwd_wgmma_dq"),
+               BWD: ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")}
 _SOURCE = {WGMMA: "flash_attention_wgmma", TF32X3: "flash_attention",
-           BWD: "flash_attention_bwd"}
+           BWD_WGMMA: "flash_attention_bwd_wgmma", BWD: "flash_attention_bwd"}
 # kernel -> its C function and packed arguments.  Forward: 4 pointers, the
 # sizes, hd_pad and key tile, masks, scale, stream, the lse pointer (0: not
 # written) (csrc/flash_attention*.cu).  Backward: 10 pointers, the sizes,
-# hd_pad, dtype, masks, scale, stream (csrc/flash_attention_bwd.cu).
+# hd_pad, dtype, masks, scale, stream (csrc/flash_attention_bwd.cu); the
+# bf16 one 10 pointers (the delta scratch holds the row tiles' statistics),
+# the sizes, hd_pad, the row tiling, masks, scale, stream
+# (csrc/flash_attention_bwd_wgmma.cu).
 _ENTRY = {WGMMA: ("repro_flash_attention_wgmma", "15qdqq"),
           TF32X3: ("repro_flash_attention_tf32x3", "15qdqq"),
+          BWD_WGMMA: ("repro_flash_attention_bwd_wgmma", "22qdq"),
           BWD: ("repro_flash_attention_bwd", "21qdq")}
 _bound = {}               # kernel -> its C function, bound at its first launch
 
@@ -69,9 +85,9 @@ def _bind(kernel: str):
 @dataclasses.dataclass(frozen=True)
 class Variant:
     """Which kernel takes a call, and its tiles."""
-    kernel: str      # WGMMA or TF32X3
+    kernel: str      # WGMMA or TF32X3 (variant), BWD_WGMMA or BWD
     hd_pad: int      # head dim as the kernel's shared-memory tiles hold it
-    key_tile: int    # keys a tile
+    key_tile: int    # keys a tile (BWD_WGMMA: a dk/dv block)
 
 
 def variant(dtype: torch.dtype, hd: int) -> Variant:
@@ -95,6 +111,62 @@ def variant(dtype: torch.dtype, hd: int) -> Variant:
         return Variant(TF32X3, hd_pad, 32 if hd_pad <= 192 else 16)
     raise ValueError(f"flash_attention: q, k and v must share float32 or "
                      f"bfloat16, got {dtype}")
+
+
+def bwd_variant(dtype: torch.dtype, hd: int) -> Variant:
+    """The backward kernel for q, k, v of ``dtype`` with head dim ``hd``.
+
+    The table, which nothing else decides and where neither kernel gives
+    way to the other:
+
+    ========  ========  ===================================================
+    dtype     hd        kernel
+    ========  ========  ===================================================
+    bfloat16  8 - 128   ``BWD_WGMMA``: hd padded with zeros to 64 or 128,
+                        128 keys a dk/dv block
+    bfloat16  136 - 256 ``BWD`` (CUDA cores): dk and dv of 64 keys would
+                        take 192 - 256 float32 registers a thread
+    float32   8 - 256   ``BWD`` (CUDA cores)
+    ========  ========  ===================================================
+
+    ``BWD`` pads hd to a multiple of 64 and takes 32 keys a tile.
+    """
+    if hd % 8 or not 8 <= hd <= 256:
+        raise ValueError(f"flash_attention_bwd: head_dim {hd} must be a "
+                         f"multiple of 8 up to 256")
+    hd_pad = -(-hd // 64) * 64
+    if dtype == torch.bfloat16 and hd_pad <= 128:
+        return Variant(BWD_WGMMA, hd_pad, 128)
+    if dtype in (torch.bfloat16, torch.float32):
+        return Variant(BWD, hd_pad, 32)
+    raise ValueError(f"flash_attention_bwd: q, k and v must share float32 "
+                     f"or bfloat16, got {dtype}")
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdTiles:
+    """How ``BWD_WGMMA`` tiles a kv head's query rows: its g = H / kv heads
+    at every position, flattened position-major (row = position * hb +
+    head), 64 rows a tile: ``hb`` heads (the largest divisor of g up to 64)
+    at ``pos_per`` = 64 // hb positions, ``tiles`` position tiles over Sq
+    and ``nhc`` = g // hb head blocks.  Rows past ``pos_per * hb`` of a
+    tile are padding."""
+    hb: int
+    pos_per: int
+    tiles: int
+    nhc: int
+
+    def stats_numel(self, b: int, kv: int) -> int:
+        """float32 elements of the row statistics (lse log2e, delta), a
+        pair for each of the 64 rows of every tile."""
+        return b * kv * self.nhc * self.tiles * 64 * 2
+
+
+def bwd_tiles(h: int, kv: int, sq: int) -> BwdTiles:
+    g = h // kv
+    hb = max(d for d in range(1, min(g, 64) + 1) if g % d == 0)
+    pos_per = 64 // hb
+    return BwdTiles(hb, pos_per, -(-sq // pos_per), g // hb)
 
 
 def _check_shapes(what: str, q: torch.Tensor, k: torch.Tensor,
@@ -198,21 +270,28 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_dtypes(what, q, k, v, o, do)
     if lse.dtype != torch.float32:
         raise ValueError(f"{what}: lse must be float32, got {lse.dtype}")
-    plan = variant(q.dtype, hd)
+    plan = bwd_variant(q.dtype, hd)
     dq, dk, dv = (torch.empty_like(x) for x in (q, k, v))
     if dq.numel() == 0 and dk.numel() == 0:
         return dq, dk, dv
-    delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    fn = _bind(BWD)
+    masks = (int(bool(causal)), int(window), int(q_offset), hd ** -0.5,
+             _build.stream_of(q))
+    fn = _bind(plan.kernel)
+    if plan.kernel == BWD_WGMMA:
+        rows = bwd_tiles(h, kv, sq)
+        delta = torch.empty(rows.stats_numel(b, kv), dtype=torch.float32,
+                            device=q.device)
+        sizes = (b, sq, sk, h, kv, hd, plan.hd_pad, rows.hb, rows.tiles)
+    else:
+        delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+        sizes = (b, sq, sk, h, kv, hd, plan.hd_pad,
+                 int(q.dtype == torch.bfloat16))
     ptrs = (q, k, v, o, do, lse, delta, dq, dk, dv)
-    _build.check(fn(*(x.data_ptr() for x in ptrs), b, sq, sk, h, kv, hd,
-                    plan.hd_pad, int(q.dtype == torch.bfloat16),
-                    int(bool(causal)), int(window), int(q_offset),
-                    hd ** -0.5, _build.stream_of(q)), what)
+    _build.check(fn(*(x.data_ptr() for x in ptrs), *sizes, *masks), what)
     flash_attention_bwd.launches += 1
-    flash_attention_bwd.launches_by_kernel[BWD] += 1
+    flash_attention_bwd.launches_by_kernel[plan.kernel] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.launches_by_kernel = {BWD: 0}
+flash_attention_bwd.launches_by_kernel = {BWD_WGMMA: 0, BWD: 0}

@@ -792,6 +792,12 @@ def test_paged_kernel_dense_config_shapes_match_plain(cuda, h, kv, hd):
 FLASH_BWD = [
     (2, 256, 256, 32, 8, 128, True, 0, 0),       # granite's heads
     (1, 200, 230, 8, 2, 64, True, 50, -20),      # window, dead rows, ragged
+    (1, 128, 384, 32, 8, 128, True, 0, 256),     # q_offset > 0, ragged
+    (1, 200, 260, 32, 8, 120, True, 0, 60),      # hd 120 (h2o-danube-3-4b)
+    (1, 192, 192, 8, 8, 128, True, 0, -30),      # g 1, dead rows
+    (1, 100, 100, 36, 4, 128, True, 0, 0),       # g 9: a padding row a tile
+    (1, 130, 70, 8, 2, 64, False, 0, 0),         # bidirectional, Sq > Sk
+    (1, 128, 160, 16, 8, 256, True, 0, 0),       # hd 256 (gemma3-12b)
 ]
 
 
@@ -807,17 +813,22 @@ def _bwd_inputs(gen, dtype, b, sq, sk, h, kv, hd, device):
 def test_flash_bwd_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kv, hd,
                                         causal, window, q_offset):
     """dq, dk and dv within 2e-4 (float32) or 2e-2 of the largest (bf16)
-    of the plain version, one launch a call, bit-identical between calls
-    (no atomics), zero for rows that see no key."""
+    of the plain version, one launch a call of the kernel the (dtype, hd)
+    table names (bf16 up to hd 128: the wgmma kernel), bit-identical between
+    calls (no atomics), zero for rows that see no key."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(31)
     q, k, v, do = _bwd_inputs(gen, dtype, b, sq, sk, h, kv, hd, cuda)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
+    kernel = fa.bwd_variant(dtype, hd).kernel
+    assert (kernel == fa.BWD_WGMMA) == (dtype == torch.bfloat16 and hd <= 128)
     before = fa.flash_attention_bwd.launches
+    by_kernel = fa.flash_attention_bwd.launches_by_kernel[kernel]
     got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     again = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
     assert fa.flash_attention_bwd.launches == before + 2
+    assert fa.flash_attention_bwd.launches_by_kernel[kernel] == by_kernel + 2
     want = tflash.flash_bwd_ref(q, k, v, o, do, lse, **kw)
     for g_, a_, w_ in zip(got, again, want):
         assert g_.dtype == dtype and torch.equal(g_, a_)
@@ -848,11 +859,14 @@ def test_flash_forward_lse_leaves_the_output_unchanged(cuda, dtype):
 
 @pytest.mark.gpu
 def test_flash_bwd_kernel_replays_in_a_cuda_graph(cuda):
+    """The bf16 wgmma backward (its wrapper allocates only the outputs and
+    the statistics scratch and never syncs) recorded in a CUDA graph."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(33)
     q, k, v, do = _bwd_inputs(gen, torch.bfloat16, 1, 128, 128, 8, 2, 128,
                               cuda)
     o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    assert fa.bwd_variant(q.dtype, 128).kernel == fa.BWD_WGMMA
     want = fa.flash_attention_bwd(q, k, v, o, do, lse)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
