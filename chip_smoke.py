@@ -149,9 +149,10 @@ prints no result):
               5e-2 limit;
 11. train   — the training path: the flash backward kernels against
               their plain version (the bf16 wgmma kernel and the float32
-              CUDA-core kernel at the training shapes, B 4 x S 1024, 32/8
-              heads of 128, causal, and both dtypes at the mask and
-              head-size cases, a row that sees no key among them; bf16
+              three-term TF32 kernel at the training shapes, B 4 x S 1024,
+              32/8 heads of 128, causal, the CUDA-core kernel in bf16 at
+              gemma3-12b's, 16/8 heads of 256, and both dtypes at the mask
+              and head-size cases, a row that sees no key among them; bf16
               within 2e-2 of the largest gradient, float32 within 2e-4;
               each call must launch the kernel the (dtype, hd) table
               names), bit-identical between calls, a planted fault
@@ -159,8 +160,9 @@ prints no result):
               moves no mask) that must break every limit, timed
               in turns with the library's backward through SDPA beside its
               bound (the backward's five products, 2.5 times the forward's
-              operations) and the kernels' seven-product floor, device time
-              by kernel; the forward kernels
+              operations; three TF32 products for float32, beside one
+              float32 product on the CUDA cores) and the kernels'
+              seven-product floor, device time by kernel; the forward kernels
               at the sequence forward's shapes with the lse not asked for
               and asked for; granite-3-8b at full width on 4 of its 40
               layers in bf16 (weights from seed 0, remat "block"): a warm-up
@@ -171,7 +173,10 @@ prints no result):
               tokens/s, peak memory and one step's forward / backward /
               optimizer split; one reduced float32 step on the card against
               the same step on the CPU (the plain versions) from the same
-              state, within 1e-4; and the AdamW moments of the first 2
+              state, within 1e-4; gemma3-12b at full width on 1 of its 48
+              layers in bf16 (heads of 256: the CUDA-core backward), a
+              warm-up step and 2 more on a repeated B 2 x S 1024 batch, the
+              loss falling; and the AdamW moments of the first 2
               layers through two ``zero_bridge`` stores over 4 logical
               memory nodes (the loopback path, pages of 16,384 float32):
               a step through the pool bit-identical to the local one, a
@@ -320,18 +325,24 @@ KERNELS = {
         replaces="src/repro/kernels/stream.py:62", paths=(),
         headline="triad float32"),
     # no pallas_call: the counterpart of the reference's XLA custom VJP;
-    # one wrapper, two kernels (bwd_variant: bf16 up to hd 128 on the tensor
-    # cores, float32 on the CUDA cores)
+    # one wrapper, three kernels (bwd_variant: bf16 up to hd 128 on the
+    # tensor cores, float32 up to hd 128 on the TF32 tensor cores, both
+    # dtypes above hd 128 on the CUDA cores)
     "flash_attention_bwd": dict(
         fns=(fa.flash_attention_bwd,), variant=fa.BWD_WGMMA,
         source="src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
         replaces="src/repro/models/flash.py:176", paths=(),
         headline="train bf16"),
     "flash_attention_bwd_f32": dict(
+        fns=(fa.flash_attention_bwd,), variant=fa.BWD_TF32X3,
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd_tf32.cu",
+        replaces="src/repro/models/flash.py:176", paths=(),
+        headline="train f32"),
+    "flash_attention_bwd_cores": dict(
         fns=(fa.flash_attention_bwd,), variant=fa.BWD,
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/models/flash.py:176", paths=(),
-        headline="train f32"),
+        headline="gemma3 bf16"),
 }
 
 
@@ -2967,7 +2978,15 @@ FLASH_BWD_CASES = [
     (1, 192, 192, 8, 8, 128, True, 0, -30),    # g 1, rows that see no key
     (1, 100, 100, 36, 4, 128, True, 0, 0),     # starcoder2's g 9: padding
     (1, 130, 70, 8, 2, 64, False, 0, 0),       # bidirectional, ragged
+    (1, 160, 160, 8, 4, 192, True, 0, 0),      # hd 192: the CUDA cores
 ]
+# the report row of each backward kernel
+BWD_ROWS = {k["variant"]: name for name, k in KERNELS.items()
+            if k["fns"] == (fa.flash_attention_bwd,)}
+# gemma3-12b at full width, cut to 1 of its 48 layers (a sliding-window
+# layer, whose 1,024-token window hides no key at S 1024): its heads of 256
+# take the CUDA-core backward in bf16.
+TRAIN_GEMMA3 = dict(layers=1, batch=2, seq=1024, steps=2)
 # the reduced float32 step on the card against the same step on the CPU
 TRAIN_REDUCED_TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -3037,25 +3056,33 @@ def check_bwd_case(q, k, v, do, **kw) -> dict:
 
 
 def check_flash_bwd(report: dict, gen, dev="cuda") -> dict:
-    """The backward kernels at the training shapes (B 4 x S 1024, 32/8
-    heads of 128, causal): bf16 (the wgmma kernel) and float32 (the CUDA
-    cores'), each timed in turns with the library's backward
-    (``torch.autograd.grad`` through ``scaled_dot_product_attention``, shown
-    for comparison; five rounds, medians), beside its bound (the backward's
-    five products over the visible pairs, 2.5 times the forward's
-    operations, at the bf16 tensor cores' peak; the float32 run at the CUDA
-    cores'), the seven-product floor of the kernels' design (s and dp
-    computed in both passes), its plain version and its device time by
-    kernel; then both dtypes at the mask and head-size cases."""
-    b, s, h, kv, hd = TRAIN["batch"], TRAIN["seq"], 32, 8, 128
+    """The backward kernels at the training shapes (B 4 x S 1024, causal):
+    bf16 (the wgmma kernel) and float32 (the three-term TF32 kernel) at
+    granite-3-8b's 32/8 heads of 128, bf16 at gemma3-12b's 16/8 heads of
+    256 (the CUDA cores' kernel), each timed in turns with the library's
+    backward (``torch.autograd.grad`` through
+    ``scaled_dot_product_attention``, shown for comparison; five rounds,
+    medians), beside its bound (the backward's five products over the
+    visible pairs, 2.5 times the forward's operations, at the bf16 tensor
+    cores' peak; float32 as three TF32 products at the TF32 peak, and as one
+    float32 product on the CUDA cores, the bound of the kernel it replaced),
+    the seven-product floor of the kernels' design (s and dp computed in
+    both passes), its plain version and its device time by kernel; then
+    both dtypes at the mask and head-size cases, each held to the kernel
+    the (dtype, hd) table names."""
+    b, s = TRAIN["batch"], TRAIN["seq"]
     pairs = int(visible_mask(s, s, True, 0, 0).sum())
     out = {}
-    for dtype, name, path, rate, iters in (
-            (torch.bfloat16, "flash_attention_bwd", "train bf16",
-             BF16_FLOP_PER_S, 50),
-            (torch.float32, "flash_attention_bwd_f32", "train f32",
-             F32_FLOP_PER_S, 3)):
-        kernels = fa.BWD_KERNELS[fa.bwd_variant(dtype, hd).kernel]
+    for dtype, path, (h, kv, hd), rate, products, iters in (
+            (torch.bfloat16, "train bf16", (32, 8, 128), BF16_FLOP_PER_S, 1,
+             50),
+            (torch.float32, "train f32", (32, 8, 128), TF32_FLOP_PER_S, 3,
+             10),
+            (torch.bfloat16, "gemma3 bf16", (16, 8, 256), BF16_FLOP_PER_S,
+             1, 3)):
+        kernel = fa.bwd_variant(dtype, hd).kernel
+        name = BWD_ROWS[kernel]
+        kernels = fa.BWD_KERNELS[kernel]
         q, k, v, do = bwd_inputs(gen, dtype, b, s, s, h, kv, hd, dev)
         res = check_bwd_case(q, k, v, do)
         o, lse = res["o"], res["lse"]
@@ -3083,42 +3110,53 @@ def check_flash_bwd(report: dict, gen, dev="cuda") -> dict:
                              iters=3, warmup=1),
             library_ms=turns["library_ms"],
             nbytes=4 * q.nbytes + 4 * k.nbytes + lse.nbytes,
-            flops=flops, flop_rate=rate,
-            note=f", B {b} S {s} causal {str(dtype)[6:]}",
+            flops=products * flops, flop_rate=rate,
+            note=f", B {b} S {s} {h}/{kv} heads of {hd} causal "
+                 f"{str(dtype)[6:]}",
             dev_us=sum(by_kernel.values()))
         entry.update(turns, planted_fault=res["planted_fault"],
                      device_us_by_kernel=by_kernel,
-                     floor_ms=7 / 5 * flops / rate * 1e3)
+                     floor_ms=7 / 5 * entry["bound_ms"])
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         entry["floor_share"] = entry["floor_ms"] / entry["ms"]
+        cores = ""
+        if dtype == torch.float32:
+            entry["bound_ms_cuda_cores"] = flops / F32_FLOP_PER_S * 1e3
+            cores = (f", {entry['bound_ms_cuda_cores'] / entry['ms']:.4f} of "
+                     f"one float32 product on the CUDA cores "
+                     f"{entry['bound_ms_cuda_cores']:.6f} ms")
         print(f"kernel {name} [{path}]: device us by kernel "
               f"{json.dumps({kn: round(us, 2) for kn, us in by_kernel.items()})}"
               f"; {entry['bound_share']:.4f} of the five-product bound "
               f"{entry['bound_ms']:.6f} ms, {entry['floor_share']:.4f} of the "
-              f"seven-product floor {entry['floor_ms']:.6f} ms")
+              f"seven-product floor {entry['floor_ms']:.6f} ms{cores}")
         out[path] = entry
         del q, k, v, do, o, lse, res, qt, kt, vt, ot, dot
     faults = [e["planted_fault"] for e in out.values()]
-    for dtype, name in ((torch.bfloat16, "flash_attention_bwd"),
-                        (torch.float32, "flash_attention_bwd_f32")):
-        worst, dead = 0.0, 0
+    worst = dict.fromkeys(BWD_ROWS.values(), 0.0)
+    for dtype in (torch.bfloat16, torch.float32):
+        dead = 0
         for case in FLASH_BWD_CASES:
             b_, sq, sk, h_, kv_, hd_, causal, window, q_offset = case
             q, k, v, do = bwd_inputs(gen, dtype, b_, sq, sk, h_, kv_, hd_,
                                      dev)
             res = check_bwd_case(q, k, v, do, causal=causal, window=window,
                                  q_offset=q_offset)
-            worst = max(worst, res["err"])
+            name = BWD_ROWS[fa.bwd_variant(dtype, hd_).kernel]
+            worst[name] = max(worst[name], res["err"])
             dead += res["dead_rows"]
             faults.append(res["planted_fault"])
         if not dead:
             raise AssertionError("no backward case has a row that sees no "
                                  "key")
-        report[name]["max_abs_err_cases"] = worst
-        print(f"kernel {name}: {len(FLASH_BWD_CASES)} {str(dtype)[6:]} cases "
-              f"(window 100, q_offset 256 / 60 / -30 / -40, {dead} rows "
-              f"that see no key, hd 64, 120, 128 and 256, g 1 to 9, "
-              f"bidirectional) within {BWD_TOL[dtype]}: worst {worst:.3g}")
+    for name, err in worst.items():
+        report[name]["max_abs_err_cases"] = err
+    print(f"kernel flash_attention_bwd: {len(FLASH_BWD_CASES)} cases in bf16 "
+          f"and float32 (window 100, q_offset 256 / 60 / -30 / -40, rows "
+          f"that see no key, hd 64, 120, 128, 192 and 256, g 1 to 9, "
+          f"bidirectional) within {BWD_TOL[torch.bfloat16]} (bf16, of the "
+          f"largest gradient) and {BWD_TOL[torch.float32]} (float32): worst "
+          f"by kernel {json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}")
     print(f"kernel flash_attention_bwd: bf16 and float32 bit-identical "
           f"between calls; the planted faults (q_offset shifted by one, the "
           f"causal mask on the bidirectional case) break every limit "
@@ -3205,6 +3243,20 @@ def split_step(run, state, batch) -> dict:
                 kernel_launches=len(kernels), flash_device_ms=flash)
 
 
+def timed_steps(step_fn, state, batch, steps: int):
+    """``steps`` training steps on one batch, each timed on the host clock
+    between synchronizes -> (state, ms of each, loss of each)."""
+    times, losses = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(metrics["loss"]))
+    return state, times, losses
+
+
 def train_full(report: dict, dev="cuda"):
     """granite-3-8b at full width, 4 layers, bf16, weights from seed 0,
     ``remat="block"``: a warm-up step and 5 timed ones on one repeated
@@ -3229,14 +3281,7 @@ def train_full(report: dict, dev="cuda"):
     warm_s = time.perf_counter() - t0
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    times, losses = [], []
-    for _ in range(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, metrics = step_fn(state, batch)
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        losses.append(float(metrics["loss"]))
+    state, times, losses = timed_steps(step_fn, state, batch, steps)
     peak = torch.cuda.max_memory_allocated() / 1e9
     want = dict.fromkeys(KERNELS, 0)
     want.update(flash_attention=2 * layers * steps,
@@ -3306,6 +3351,46 @@ def train_reduced_f32(report: dict, dev="cuda") -> dict:
     print(f"train f32 reduced: one step on the card == on the CPU within "
           f"{TRAIN_REDUCED_TOL}: {errs}")
     return errs
+
+
+def train_gemma3(report: dict, dev="cuda") -> dict:
+    """gemma3-12b at full width, 1 layer, bf16, weights from seed 0,
+    ``remat="block"``: a warm-up step and 2 more on one repeated batch of
+    ``SyntheticLM`` (B 2 x S 1024); its heads of 256 send the backward to
+    the CUDA cores (one launch a layer a step, two of the forward)."""
+    layers, b, s, steps = (TRAIN_GEMMA3[k] for k in ("layers", "batch",
+                                                     "seq", "steps"))
+    cfg = dataclasses.replace(configs.get_config("gemma3-12b"),
+                              num_layers=layers)
+    run = RunConfig(model=cfg, shape=ShapeConfig("train", s, b, "train"),
+                    optim=OptimConfig(warmup_steps=1), remat="block")
+    if fa.bwd_variant(torch.bfloat16, cfg.head_dim).kernel != fa.BWD:
+        raise AssertionError("train gemma3: its heads no longer take the "
+                             "CUDA-core backward")
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    state = train_step.make_train_state(run, gen, device=dev)
+    batch = to_device(SyntheticLM(cfg, b, s, seed=0).batch_at(0), dev)
+    step_fn = train_step.build_train_step(run)
+    state, first = step_fn(state, batch)
+    first_loss = float(first["loss"])
+    reset_launches()
+    state, times, losses = timed_steps(step_fn, state, batch, steps)
+    want = dict.fromkeys(KERNELS, 0)
+    want.update(flash_attention=2 * layers * steps,
+                flash_attention_bwd_cores=layers * steps)
+    hold_train_launches(report, "train gemma3 bf16", read_launches(), want)
+    if not all(np.isfinite(losses)) or not losses[-1] < first_loss:
+        raise AssertionError(f"train gemma3: the loss on a repeated batch "
+                             f"went from {first_loss} to {losses}")
+    out = dict(layers=layers, batch=b, seq=s, first_loss=first_loss,
+               losses=losses, step_ms=times,
+               peak_gb=torch.cuda.max_memory_allocated() / 1e9)
+    del state, batch
+    torch.cuda.empty_cache()
+    print("train gemma3:", json.dumps(out))
+    return out
 
 
 def train_pool(report: dict, run, state, batch, dev="cuda") -> dict:
@@ -3414,8 +3499,9 @@ def train_pool(report: dict, run, state, batch, dev="cuda") -> dict:
 
 
 def train_phase(report: dict, dev="cuda") -> dict:
-    """Phase 11: the backward kernel, training at full width, the float32
-    step against the CPU, the moments through the pool."""
+    """Phase 11: the backward kernels, training at full width, the float32
+    step against the CPU, the moments through the pool, one gemma3-12b
+    layer's training steps."""
     t0 = time.perf_counter()
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
@@ -3427,6 +3513,7 @@ def train_phase(report: dict, dev="cuda") -> dict:
     del state, batch
     torch.cuda.empty_cache()
     out["reduced_f32"] = train_reduced_f32(report, dev)
+    out["gemma3"] = train_gemma3(report, dev)
     out["seconds"] = time.perf_counter() - t0
     print(f"train phase: {out['seconds']:.1f} s")
     return out

@@ -1,6 +1,7 @@
-// Flash attention, backward, float32, and bf16 at hd 136 to 256, on the
+// Flash attention, backward, float32 and bf16 at hd 136 to 256, on the
 // CUDA cores (sm_90a).  The wrapper's bwd_variant table sends bf16 up to
-// hd 128 to flash_attention_bwd_wgmma.cu (the tensor cores) instead.
+// hd 128 to flash_attention_bwd_wgmma.cu and float32 up to hd 128 to
+// flash_attention_bwd_tf32.cu (the tensor cores) instead.
 //
 // The counterpart of the reference's custom VJP of its chunked flash
 // attention (src/repro/models/flash.py, _flash_bwd), which the TPU runs in

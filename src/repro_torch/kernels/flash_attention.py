@@ -25,14 +25,18 @@ than before.  :func:`flash_attention_bwd` takes the forward's inputs, its
 output and lse and the output's gradient and returns dq, dk and dv with
 the reference's VJP arithmetic (``repro.models.flash._flash_bwd``): on a
 CPU tensor the plain version (:func:`repro_torch.models.flash.
-flash_bwd_ref`), on a CUDA tensor one of two kernels, chosen by the dtype
-and the head dim alone (:func:`bwd_variant`), each three kernels with no
-atomics, so two calls give the same bits:
+flash_bwd_ref`), on a CUDA tensor one of three kernels, chosen by the
+dtype and the head dim alone (:func:`bwd_variant`), each three kernels with
+no atomics, so two calls give the same bits:
 
 - bfloat16 up to hd 128: ``csrc/flash_attention_bwd_wgmma.cu``
   (``flash_bwd_wgmma_delta``, ``_dkdv``, ``_dq``), wgmma on bf16 tiles
   staged by TMA, the rows tiled as :func:`bwd_tiles` says;
-- float32, and bfloat16 beyond hd 128: ``csrc/flash_attention_bwd.cu``
+- float32 up to hd 128: ``csrc/flash_attention_bwd_tf32.cu``
+  (``flash_bwd_tf32x3_delta``, ``_dkdv``, ``_dq``), mma.sync on TF32
+  tiles, every product taken as hi·lo + lo·hi + hi·hi as the float32
+  forward takes it;
+- float32 and bfloat16 beyond hd 128: ``csrc/flash_attention_bwd.cu``
   (``flash_bwd_delta``, ``flash_bwd_dkdv``, ``flash_bwd_dq``) on the CUDA
   cores.
 
@@ -54,23 +58,29 @@ from repro_torch.models.flash import (NEG_INF, attention_lse_ref,
 
 WGMMA = "flash_fwd_wgmma"          # the kernels' symbols, as profilers name them
 TF32X3 = "flash_fwd_tf32x3"
-BWD_WGMMA = "flash_bwd_wgmma"      # the backward on the tensor cores (bf16)
+BWD_WGMMA = "flash_bwd_wgmma"      # the backward on the tensor cores (bf16),
+BWD_TF32X3 = "flash_bwd_tf32x3"    # on the TF32 tensor cores (float32)
 BWD = "flash_bwd"                  # and on the CUDA cores, whose kernels are
 BWD_KERNELS = {BWD_WGMMA: ("flash_bwd_wgmma_delta", "flash_bwd_wgmma_dkdv",
                            "flash_bwd_wgmma_dq"),
+               BWD_TF32X3: ("flash_bwd_tf32x3_delta", "flash_bwd_tf32x3_dkdv",
+                            "flash_bwd_tf32x3_dq"),
                BWD: ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")}
 _SOURCE = {WGMMA: "flash_attention_wgmma", TF32X3: "flash_attention",
-           BWD_WGMMA: "flash_attention_bwd_wgmma", BWD: "flash_attention_bwd"}
+           BWD_WGMMA: "flash_attention_bwd_wgmma",
+           BWD_TF32X3: "flash_attention_bwd_tf32", BWD: "flash_attention_bwd"}
 # kernel -> its C function and packed arguments.  Forward: 4 pointers, the
 # sizes, hd_pad and key tile, masks, scale, stream, the lse pointer (0: not
 # written) (csrc/flash_attention*.cu).  Backward: 10 pointers, the sizes,
-# hd_pad, dtype, masks, scale, stream (csrc/flash_attention_bwd.cu); the
+# hd_pad, dtype, masks, scale, stream (csrc/flash_attention_bwd.cu and
+# csrc/flash_attention_bwd_tf32.cu, which takes dtype 0 only); the
 # bf16 one 10 pointers (the delta scratch holds the row tiles' statistics),
 # the sizes, hd_pad, the row tiling, masks, scale, stream
 # (csrc/flash_attention_bwd_wgmma.cu).
 _ENTRY = {WGMMA: ("repro_flash_attention_wgmma", "15qdqq"),
           TF32X3: ("repro_flash_attention_tf32x3", "15qdqq"),
           BWD_WGMMA: ("repro_flash_attention_bwd_wgmma", "22qdq"),
+          BWD_TF32X3: ("repro_flash_attention_bwd_tf32", "21qdq"),
           BWD: ("repro_flash_attention_bwd", "21qdq")}
 _bound = {}               # kernel -> its C function, bound at its first launch
 
@@ -85,9 +95,10 @@ def _bind(kernel: str):
 @dataclasses.dataclass(frozen=True)
 class Variant:
     """Which kernel takes a call, and its tiles."""
-    kernel: str      # WGMMA or TF32X3 (variant), BWD_WGMMA or BWD
+    kernel: str      # WGMMA or TF32X3 (variant); BWD_WGMMA, BWD_TF32X3 or
+                     # BWD (bwd_variant)
     hd_pad: int      # head dim as the kernel's shared-memory tiles hold it
-    key_tile: int    # keys a tile (BWD_WGMMA: a dk/dv block)
+    key_tile: int    # keys a tile (BWD_WGMMA, BWD_TF32X3: a dk/dv block)
 
 
 def variant(dtype: torch.dtype, hd: int) -> Variant:
@@ -126,7 +137,11 @@ def bwd_variant(dtype: torch.dtype, hd: int) -> Variant:
                         128 keys a dk/dv block
     bfloat16  136 - 256 ``BWD`` (CUDA cores): dk and dv of 64 keys would
                         take 192 - 256 float32 registers a thread
-    float32   8 - 256   ``BWD`` (CUDA cores)
+    float32   8 - 128   ``BWD_TF32X3``: hd padded with zeros to 64 or 128,
+                        128 keys a dk/dv block
+    float32   136 - 256 ``BWD`` (CUDA cores): hd is not split across warps,
+                        and dk and dv of 16 keys a warp would take 192 -
+                        256 float32 registers a thread
     ========  ========  ===================================================
 
     ``BWD`` pads hd to a multiple of 64 and takes 32 keys a tile.
@@ -137,6 +152,8 @@ def bwd_variant(dtype: torch.dtype, hd: int) -> Variant:
     hd_pad = -(-hd // 64) * 64
     if dtype == torch.bfloat16 and hd_pad <= 128:
         return Variant(BWD_WGMMA, hd_pad, 128)
+    if dtype == torch.float32 and hd_pad <= 128:
+        return Variant(BWD_TF32X3, hd_pad, 128)
     if dtype in (torch.bfloat16, torch.float32):
         return Variant(BWD, hd_pad, 32)
     raise ValueError(f"flash_attention_bwd: q, k and v must share float32 "
@@ -294,4 +311,5 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.launches_by_kernel = {BWD_WGMMA: 0, BWD: 0}
+flash_attention_bwd.launches_by_kernel = {BWD_WGMMA: 0, BWD_TF32X3: 0,
+                                          BWD: 0}

@@ -268,20 +268,22 @@ def test_tiling_differs_from_plain_only_in_sum_order():
 
 @pytest.mark.parametrize("hd", range(8, 257, 8))
 def test_backward_kernel_table(hd):
-    """bf16 up to hd 128 takes the wgmma backward, hd padded to 64 or 128;
-    bf16 beyond and float32 take the CUDA cores' backward; the forward's
-    table is its own."""
+    """bf16 up to hd 128 takes the wgmma backward and float32 up to hd 128
+    the TF32 one, hd padded to 64 or 128, 128 keys a dk/dv block; bf16 and
+    float32 beyond take the CUDA cores' backward; the forward's table is
+    its own."""
     wg = tfa.bwd_variant(torch.bfloat16, hd)
     f32 = tfa.bwd_variant(torch.float32, hd)
     pad = -(-hd // 64) * 64
     if hd <= 128:
         assert wg == tfa.Variant(tfa.BWD_WGMMA, pad, 128)
+        assert f32 == tfa.Variant(tfa.BWD_TF32X3, pad, 128)
     else:
         assert wg == tfa.Variant(tfa.BWD, pad, 32)
-    assert f32 == tfa.Variant(tfa.BWD, pad, 32)
-    assert set(tfa.BWD_KERNELS) == {tfa.BWD_WGMMA, tfa.BWD}
+        assert f32 == tfa.Variant(tfa.BWD, pad, 32)
+    assert set(tfa.BWD_KERNELS) == {tfa.BWD_WGMMA, tfa.BWD_TF32X3, tfa.BWD}
     assert tfa.flash_attention_bwd.launches_by_kernel.keys() == {
-        tfa.BWD_WGMMA, tfa.BWD}
+        tfa.BWD_WGMMA, tfa.BWD_TF32X3, tfa.BWD}
 
 
 def test_backward_kernel_table_refuses():

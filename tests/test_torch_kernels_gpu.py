@@ -798,6 +798,11 @@ FLASH_BWD = [
     (1, 100, 100, 36, 4, 128, True, 0, 0),       # g 9: a padding row a tile
     (1, 130, 70, 8, 2, 64, False, 0, 0),         # bidirectional, Sq > Sk
     (1, 128, 160, 16, 8, 256, True, 0, 0),       # hd 256 (gemma3-12b)
+    (1, 64, 64, 4, 4, 8, True, 0, 0),            # hd 8
+    (4, 64, 64, 4, 2, 32, True, 0, 0),           # the reduced configs' heads
+    (1, 300, 300, 12, 4, 96, True, 100, 0),      # g 3, window, hd 96
+    (1, 160, 160, 8, 4, 192, True, 0, 0),        # hd 192: the CUDA cores
+    (1, 100, 300, 6, 2, 64, False, 50, 120),     # a window, not causal
 ]
 
 
@@ -814,8 +819,9 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kv, hd,
                                         causal, window, q_offset):
     """dq, dk and dv within 2e-4 (float32) or 2e-2 of the largest (bf16)
     of the plain version, one launch a call of the kernel the (dtype, hd)
-    table names (bf16 up to hd 128: the wgmma kernel), bit-identical between
-    calls (no atomics), zero for rows that see no key."""
+    table names (up to hd 128, bf16: the wgmma kernel, float32: the TF32
+    one), bit-identical between calls (no atomics), zero for rows that see
+    no key."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(31)
     q, k, v, do = _bwd_inputs(gen, dtype, b, sq, sk, h, kv, hd, cuda)
@@ -823,6 +829,7 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kv, hd,
     o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
     kernel = fa.bwd_variant(dtype, hd).kernel
     assert (kernel == fa.BWD_WGMMA) == (dtype == torch.bfloat16 and hd <= 128)
+    assert (kernel == fa.BWD_TF32X3) == (dtype == torch.float32 and hd <= 128)
     before = fa.flash_attention_bwd.launches
     by_kernel = fa.flash_attention_bwd.launches_by_kernel[kernel]
     got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
@@ -867,6 +874,33 @@ def test_flash_bwd_kernel_replays_in_a_cuda_graph(cuda):
                               cuda)
     o, lse = fa.flash_attention(q, k, v, return_lse=True)
     assert fa.bwd_variant(q.dtype, 128).kernel == fa.BWD_WGMMA
+    want = fa.flash_attention_bwd(q, k, v, o, do, lse)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fa.flash_attention_bwd(q, k, v, o, do, lse)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fa.flash_attention_bwd(q, k, v, o, do, lse)
+    for x in out:
+        x.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for g_, w_ in zip(out, want):
+        assert torch.equal(g_, w_)
+
+
+@pytest.mark.gpu
+def test_flash_bwd_tf32_kernel_replays_in_a_cuda_graph(cuda):
+    """The float32 TF32 backward (its wrapper allocates only the outputs
+    and the delta scratch and never syncs) recorded in a CUDA graph."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(35)
+    q, k, v, do = _bwd_inputs(gen, torch.float32, 1, 200, 200, 8, 2, 120,
+                              cuda)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    assert fa.bwd_variant(q.dtype, 120).kernel == fa.BWD_TF32X3
     want = fa.flash_attention_bwd(q, k, v, o, do, lse)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())

@@ -261,6 +261,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_loaded", {})
     assert _build.sources() == ["bridge_attention", "bridge_gather",
                                "flash_attention", "flash_attention_bwd",
+                               "flash_attention_bwd_tf32",
                                "flash_attention_bwd_wgmma",
                                "flash_attention_wgmma", "paged_attention",
                                "stream"]
