@@ -150,9 +150,10 @@ prints no result):
 11. train   — the training path: the flash backward kernels against
               their plain version (the bf16 wgmma kernel and the float32
               three-term TF32 kernel at the training shapes, B 4 x S 1024,
-              32/8 heads of 128, causal, the CUDA-core kernel in bf16 at
-              gemma3-12b's, 16/8 heads of 256, and both dtypes at the mask
-              and head-size cases, a row that sees no key among them; bf16
+              32/8 heads of 128, causal, the split-hd bf16 wgmma kernel and
+              the float32 CUDA-core kernel at gemma3-12b's, 16/8 heads of
+              256, and both dtypes at the mask and head-size cases, a row
+              that sees no key among them; bf16
               within 2e-2 of the largest gradient, float32 within 2e-4;
               each call must launch the kernel the (dtype, hd) table
               names), bit-identical between calls, a planted fault
@@ -161,8 +162,10 @@ prints no result):
               in turns with the library's backward through SDPA beside its
               bound (the backward's five products, 2.5 times the forward's
               operations; three TF32 products for float32, beside one
-              float32 product on the CUDA cores) and the kernels'
-              seven-product floor, device time by kernel; the forward kernels
+              float32 product on the CUDA cores) and the floor of each
+              kernel's design (seven products; nine for the split-hd
+              kernel, which computes s and dp once in each of its dk/dv
+              warpgroups), device time by kernel; the forward kernels
               at the sequence forward's shapes with the lse not asked for
               and asked for; granite-3-8b at full width on 4 of its 40
               layers in bf16 (weights from seed 0, remat "block"): a warm-up
@@ -173,11 +176,15 @@ prints no result):
               tokens/s, peak memory and one step's forward / backward /
               optimizer split; one reduced float32 step on the card against
               the same step on the CPU (the plain versions) from the same
-              state, within 1e-4; gemma3-12b at full width on 1 of its 48
-              layers in bf16 (heads of 256: the CUDA-core backward), a
-              warm-up step and 2 more on a repeated B 2 x S 1024 batch, the
-              loss falling; and the AdamW moments of the first 2
-              layers through two ``zero_bridge`` stores over 4 logical
+              state, within 1e-4, and the same for reduced gemma3-12b at
+              its own heads of 256 (1 layer; the float32 backward on the
+              CUDA cores; each parameter within 1e-4 plus AdamW's
+              first-step slope times its gradient's difference);
+              gemma3-12b at full width on 1 of its 48 layers in bf16
+              (heads of 256: the split-hd wgmma backward), a warm-up step
+              and 2 more on a repeated B 2 x S 1024 batch, the loss
+              falling; and the AdamW moments of the first layer (and the
+              embedding) through two ``zero_bridge`` stores over 4 logical
               memory nodes (the loopback path, pages of 16,384 float32):
               a step through the pool bit-identical to the local one, a
               checkpoint, node 2 failed, ``rehome_after_failure`` from the
@@ -325,9 +332,9 @@ KERNELS = {
         replaces="src/repro/kernels/stream.py:62", paths=(),
         headline="triad float32"),
     # no pallas_call: the counterpart of the reference's XLA custom VJP;
-    # one wrapper, three kernels (bwd_variant: bf16 up to hd 128 on the
-    # tensor cores, float32 up to hd 128 on the TF32 tensor cores, both
-    # dtypes above hd 128 on the CUDA cores)
+    # one wrapper, four kernels (bwd_variant: bf16 on the tensor cores up
+    # to hd 128 and, with the head dim split, above; float32 up to hd 128
+    # on the TF32 tensor cores, above hd 128 on the CUDA cores)
     "flash_attention_bwd": dict(
         fns=(fa.flash_attention_bwd,), variant=fa.BWD_WGMMA,
         source="src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
@@ -338,11 +345,16 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/flash_attention_bwd_tf32.cu",
         replaces="src/repro/models/flash.py:176", paths=(),
         headline="train f32"),
+    "flash_attention_bwd_wgmma256": dict(
+        fns=(fa.flash_attention_bwd,), variant=fa.BWD_WGMMA256,
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma256.cu",
+        replaces="src/repro/models/flash.py:176", paths=(),
+        headline="gemma3 bf16"),
     "flash_attention_bwd_cores": dict(
         fns=(fa.flash_attention_bwd,), variant=fa.BWD,
         source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
         replaces="src/repro/models/flash.py:176", paths=(),
-        headline="gemma3 bf16"),
+        headline="gemma3 f32"),
 }
 
 
@@ -2956,9 +2968,9 @@ def dense_phase(report: dict, dev="cuda") -> dict:
 
 # granite-3-8b at full width, cut to 4 of its 40 layers (one card holds the
 # bf16 weights and float32 moments of 40 layers in 96 GB); the moments'
-# trip through the pool takes the first 2 layers (the checkpoint it writes
-# and reads back is 4.8 GB of float32 moments, not 16).
-TRAIN = dict(layers=4, batch=4, seq=1024, steps=5, pool_layers=2,
+# trip through the pool takes the first layer and the embedding (the
+# checkpoint it writes and reads back is 3.2 GB of float32 moments).
+TRAIN = dict(layers=4, batch=4, seq=1024, steps=5, pool_layers=1,
              pool_nodes=4, page_elems=16_384, failed_node=2)
 # The backward against its plain version: float32 as an absolute limit (the
 # kernel's float32 sums differ from the plain version's in order only),
@@ -2978,14 +2990,21 @@ FLASH_BWD_CASES = [
     (1, 192, 192, 8, 8, 128, True, 0, -30),    # g 1, rows that see no key
     (1, 100, 100, 36, 4, 128, True, 0, 0),     # starcoder2's g 9: padding
     (1, 130, 70, 8, 2, 64, False, 0, 0),       # bidirectional, ragged
-    (1, 160, 160, 8, 4, 192, True, 0, 0),      # hd 192: the CUDA cores
+    (1, 160, 160, 8, 4, 192, True, 0, 0),      # hd 192: blocks split 2 / 1
+    (1, 200, 260, 8, 2, 136, True, 0, 60),     # hd 136 padded to 192
+    (1, 192, 192, 16, 8, 256, True, 0, -30),   # gemma3's heads, dead rows
 ]
 # the report row of each backward kernel
 BWD_ROWS = {k["variant"]: name for name, k in KERNELS.items()
             if k["fns"] == (fa.flash_attention_bwd,)}
+# the floor of each backward kernel's design, in products over the visible
+# pairs (the backward needs five): s and dp computed in both passes, and in
+# the split-hd kernel once more in its second dk/dv warpgroup
+BWD_DESIGN_PRODUCTS = {fa.BWD_WGMMA: 7, fa.BWD_TF32X3: 7, fa.BWD: 7,
+                       fa.BWD_WGMMA256: 9}
 # gemma3-12b at full width, cut to 1 of its 48 layers (a sliding-window
 # layer, whose 1,024-token window hides no key at S 1024): its heads of 256
-# take the CUDA-core backward in bf16.
+# take the split-hd wgmma backward in bf16.
 TRAIN_GEMMA3 = dict(layers=1, batch=2, seq=1024, steps=2)
 # the reduced float32 step on the card against the same step on the CPU
 TRAIN_REDUCED_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -3058,18 +3077,18 @@ def check_bwd_case(q, k, v, do, **kw) -> dict:
 def check_flash_bwd(report: dict, gen, dev="cuda") -> dict:
     """The backward kernels at the training shapes (B 4 x S 1024, causal):
     bf16 (the wgmma kernel) and float32 (the three-term TF32 kernel) at
-    granite-3-8b's 32/8 heads of 128, bf16 at gemma3-12b's 16/8 heads of
-    256 (the CUDA cores' kernel), each timed in turns with the library's
-    backward (``torch.autograd.grad`` through
-    ``scaled_dot_product_attention``, shown for comparison; five rounds,
-    medians), beside its bound (the backward's five products over the
-    visible pairs, 2.5 times the forward's operations, at the bf16 tensor
-    cores' peak; float32 as three TF32 products at the TF32 peak, and as one
-    float32 product on the CUDA cores, the bound of the kernel it replaced),
-    the seven-product floor of the kernels' design (s and dp computed in
-    both passes), its plain version and its device time by kernel; then
-    both dtypes at the mask and head-size cases, each held to the kernel
-    the (dtype, hd) table names."""
+    granite-3-8b's 32/8 heads of 128, bf16 (the split-hd wgmma kernel) and
+    float32 (the CUDA cores' kernel) at gemma3-12b's 16/8 heads of 256,
+    each timed in turns with the library's backward (``torch.autograd.grad``
+    through ``scaled_dot_product_attention``, shown for comparison; five
+    rounds, medians), beside its bound (the backward's five products over
+    the visible pairs, 2.5 times the forward's operations, at the bf16
+    tensor cores' peak; float32 as three TF32 products at the TF32 peak, and
+    as one float32 product on the CUDA cores), the floor of the kernel's
+    design (``BWD_DESIGN_PRODUCTS``: seven products, s and dp computed in
+    both passes; nine for the split-hd kernel), its plain version and its
+    device time by kernel; then both dtypes at the mask and head-size
+    cases, each held to the kernel the (dtype, hd) table names."""
     b, s = TRAIN["batch"], TRAIN["seq"]
     pairs = int(visible_mask(s, s, True, 0, 0).sum())
     out = {}
@@ -3079,7 +3098,9 @@ def check_flash_bwd(report: dict, gen, dev="cuda") -> dict:
             (torch.float32, "train f32", (32, 8, 128), TF32_FLOP_PER_S, 3,
              10),
             (torch.bfloat16, "gemma3 bf16", (16, 8, 256), BF16_FLOP_PER_S,
-             1, 3)):
+             1, 50),
+            (torch.float32, "gemma3 f32", (16, 8, 256), TF32_FLOP_PER_S, 3,
+             3)):
         kernel = fa.bwd_variant(dtype, hd).kernel
         name = BWD_ROWS[kernel]
         kernels = fa.BWD_KERNELS[kernel]
@@ -3114,9 +3135,10 @@ def check_flash_bwd(report: dict, gen, dev="cuda") -> dict:
             note=f", B {b} S {s} {h}/{kv} heads of {hd} causal "
                  f"{str(dtype)[6:]}",
             dev_us=sum(by_kernel.values()))
+        design = BWD_DESIGN_PRODUCTS[kernel]
         entry.update(turns, planted_fault=res["planted_fault"],
-                     device_us_by_kernel=by_kernel,
-                     floor_ms=7 / 5 * entry["bound_ms"])
+                     device_us_by_kernel=by_kernel, floor_products=design,
+                     floor_ms=design / 5 * entry["bound_ms"])
         entry["bound_share"] = entry["bound_ms"] / entry["ms"]
         entry["floor_share"] = entry["floor_ms"] / entry["ms"]
         cores = ""
@@ -3129,7 +3151,7 @@ def check_flash_bwd(report: dict, gen, dev="cuda") -> dict:
               f"{json.dumps({kn: round(us, 2) for kn, us in by_kernel.items()})}"
               f"; {entry['bound_share']:.4f} of the five-product bound "
               f"{entry['bound_ms']:.6f} ms, {entry['floor_share']:.4f} of the "
-              f"seven-product floor {entry['floor_ms']:.6f} ms{cores}")
+              f"{design}-product floor {entry['floor_ms']:.6f} ms{cores}")
         out[path] = entry
         del q, k, v, do, o, lse, res, qt, kt, vt, ot, dot
     faults = [e["planted_fault"] for e in out.values()]
@@ -3153,7 +3175,7 @@ def check_flash_bwd(report: dict, gen, dev="cuda") -> dict:
         report[name]["max_abs_err_cases"] = err
     print(f"kernel flash_attention_bwd: {len(FLASH_BWD_CASES)} cases in bf16 "
           f"and float32 (window 100, q_offset 256 / 60 / -30 / -40, rows "
-          f"that see no key, hd 64, 120, 128, 192 and 256, g 1 to 9, "
+          f"that see no key, hd 64, 120, 128, 136, 192 and 256, g 1 to 9, "
           f"bidirectional) within {BWD_TOL[torch.bfloat16]} (bf16, of the "
           f"largest gradient) and {BWD_TOL[torch.float32]} (float32): worst "
           f"by kernel {json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})}")
@@ -3306,13 +3328,24 @@ def train_full(report: dict, dev="cuda"):
     return run, state, batch, out
 
 
-def train_reduced_f32(report: dict, dev="cuda") -> dict:
-    """One step of reduced granite-3-8b in float32 on the card (the float32
-    flash kernels, forward and backward) against the same step on the CPU
-    (the plain versions) from the same state: loss, grad norm, parameters,
-    m and v within 1e-4."""
-    cfg = dataclasses.replace(configs.get_reduced("granite-3-8b"),
-                              dtype="float32")
+def train_reduced_f32(report: dict, dev="cuda", arch: str = "granite-3-8b",
+                      path: str = "train reduced f32",
+                      row: str = "flash_attention_bwd_f32",
+                      adamw_slack: bool = False, **overrides) -> dict:
+    """One step of reduced ``arch`` in float32 on the card (the float32
+    flash kernels, forward and backward; the backward's launches counted
+    under ``row``) against the same step on the CPU (the plain versions)
+    from the same state: loss, grad norm, parameters, m and v within 1e-4.
+    AdamW's first step moves a parameter by lr (g / (|g| + eps) + wd p),
+    g = m / (1 - b1) the clipped gradient, so where |g| is near eps a
+    difference dg between the card's and the CPU's gradient (their float32
+    sums in another order) moves it by up to lr eps |dg| / (|g| + eps)^2,
+    lr |dg| / eps where the two signs differ.  With ``adamw_slack`` each
+    parameter's limit is 1e-4 plus that; without, 1e-4 alone.  The
+    parameter that moved most against its limit is printed with both
+    gradients.  ``overrides`` replace fields of the reduced config."""
+    cfg = dataclasses.replace(configs.get_reduced(arch), dtype="float32",
+                              **overrides)
     run = RunConfig(model=cfg, shape=ShapeConfig("t", 64, 4, "train"),
                     optim=OptimConfig(lr=3e-3, warmup_steps=1))
     gen = torch.Generator()
@@ -3326,47 +3359,75 @@ def train_reduced_f32(report: dict, dev="cuda") -> dict:
     card_state, card_m = step_fn(card_state, to_device(data, dev))
     # the forward and the backward's remat recompute, then the backward
     want = dict.fromkeys(KERNELS, 0)
-    want.update(flash_attention_f32=2 * cfg.num_layers,
-                flash_attention_bwd_f32=cfg.num_layers)
+    want.update({"flash_attention_f32": 2 * cfg.num_layers,
+                 row: cfg.num_layers})
     counts = read_launches()
     if fa.flash_attention.launches != 2 * cfg.num_layers:
-        raise AssertionError(f"train f32: {fa.flash_attention.launches} "
+        raise AssertionError(f"{path}: {fa.flash_attention.launches} "
                              f"forward launches, expected "
                              f"{2 * cfg.num_layers}")
-    hold_train_launches(report, "train reduced f32", counts, want)
+    hold_train_launches(report, path, counts, want)
     errs = {}
     for key in ("loss", "grad_norm", "lr"):
         torch.testing.assert_close(card_m[key].cpu(), cpu_m[key],
                                    **TRAIN_REDUCED_TOL)
         errs[key] = float((card_m[key].cpu() - cpu_m[key]).abs())
-    for name in ("params", "m", "v"):
-        a = (card_state.params if name == "params"
-             else getattr(card_state.opt, name))
-        c = (cpu_state.params if name == "params"
-             else getattr(cpu_state.opt, name))
+    for name in ("m", "v"):
         errs[name] = 0.0
-        for x, y in zip(tree.leaves(a), tree.leaves(c)):
+        for x, y in zip(tree.leaves(getattr(card_state.opt, name)),
+                        tree.leaves(getattr(cpu_state.opt, name))):
             torch.testing.assert_close(x.cpu(), y, **TRAIN_REDUCED_TOL)
             errs[name] = max(errs[name], float((x.cpu() - y).abs().max()))
-    print(f"train f32 reduced: one step on the card == on the CPU within "
-          f"{TRAIN_REDUCED_TOL}: {errs}")
-    return errs
+    lr, eps = float(cpu_m["lr"]), run.optim.eps
+    errs["params"], worst = 0.0, None
+    for (leaf, x), y, mx, my in zip(
+            tree.leaves_with_path(card_state.params),
+            tree.leaves(cpu_state.params), tree.leaves(card_state.opt.m),
+            tree.leaves(cpu_state.opt.m)):
+        d = (x.cpu() - y).abs()
+        limit = (TRAIN_REDUCED_TOL["atol"]
+                 + TRAIN_REDUCED_TOL["rtol"] * y.abs())
+        gx, gy = mx.cpu() / (1 - run.optim.b1), my / (1 - run.optim.b1)
+        if adamw_slack:
+            g_lo = torch.where(gx * gy > 0,
+                               torch.minimum(gx.abs(), gy.abs()), 0.0)
+            limit = limit + lr * eps * (gx - gy).abs() / (g_lo + eps) ** 2
+        if not bool((d <= limit).all()):
+            raise AssertionError(f"{path}: parameter {leaf} moved past its "
+                                 f"limit: {float(d.max())}")
+        i = int(torch.argmax(d / limit))
+        share = float(d.flatten()[i] / limit.flatten()[i])
+        errs["params"] = max(errs["params"], float(d.max()))
+        if worst is None or share > worst["share_of_limit"]:
+            at = [int(j) for j in np.unravel_index(i, tuple(d.shape))]
+            worst = dict(leaf=leaf, at=at, share_of_limit=share,
+                         moved=float(d.flatten()[i]),
+                         limit=float(limit.flatten()[i]),
+                         grad_card=float(gx.flatten()[i]),
+                         grad_cpu=float(gy.flatten()[i]))
+    print(f"{path}: the parameter that moved most against its limit "
+          f"(lr {lr}, eps {eps}): {json.dumps(worst)}")
+    print(f"{path}: one step on the card == on the CPU within "
+          f"{TRAIN_REDUCED_TOL}"
+          f"{' plus AdamW slack' if adamw_slack else ''}: {errs}")
+    return dict(errs, worst_param=worst)
 
 
 def train_gemma3(report: dict, dev="cuda") -> dict:
     """gemma3-12b at full width, 1 layer, bf16, weights from seed 0,
     ``remat="block"``: a warm-up step and 2 more on one repeated batch of
     ``SyntheticLM`` (B 2 x S 1024); its heads of 256 send the backward to
-    the CUDA cores (one launch a layer a step, two of the forward)."""
+    the split-hd wgmma kernel (one launch a layer a step, two of the
+    forward)."""
     layers, b, s, steps = (TRAIN_GEMMA3[k] for k in ("layers", "batch",
                                                      "seq", "steps"))
     cfg = dataclasses.replace(configs.get_config("gemma3-12b"),
                               num_layers=layers)
     run = RunConfig(model=cfg, shape=ShapeConfig("train", s, b, "train"),
                     optim=OptimConfig(warmup_steps=1), remat="block")
-    if fa.bwd_variant(torch.bfloat16, cfg.head_dim).kernel != fa.BWD:
+    if fa.bwd_variant(torch.bfloat16, cfg.head_dim).kernel != fa.BWD_WGMMA256:
         raise AssertionError("train gemma3: its heads no longer take the "
-                             "CUDA-core backward")
+                             "split-hd wgmma backward")
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -3379,7 +3440,7 @@ def train_gemma3(report: dict, dev="cuda") -> dict:
     state, times, losses = timed_steps(step_fn, state, batch, steps)
     want = dict.fromkeys(KERNELS, 0)
     want.update(flash_attention=2 * layers * steps,
-                flash_attention_bwd_cores=layers * steps)
+                flash_attention_bwd_wgmma256=layers * steps)
     hold_train_launches(report, "train gemma3 bf16", read_launches(), want)
     if not all(np.isfinite(losses)) or not losses[-1] < first_loss:
         raise AssertionError(f"train gemma3: the loss on a repeated batch "
@@ -3394,7 +3455,7 @@ def train_gemma3(report: dict, dev="cuda") -> dict:
 
 
 def train_pool(report: dict, run, state, batch, dev="cuda") -> dict:
-    """The AdamW moments of the first 2 layers (and the embedding) through
+    """The AdamW moments of the first layer (and the embedding) through
     the pool: m and v each in a ``zero_bridge`` store over 4 logical memory
     nodes (the loopback path, pages of 16,384 float32), on one control
     plane with room for a failed node's pages on the survivors.  A step
@@ -3513,6 +3574,13 @@ def train_phase(report: dict, dev="cuda") -> dict:
     del state, batch
     torch.cuda.empty_cache()
     out["reduced_f32"] = train_reduced_f32(report, dev)
+    # reduced gemma3-12b at its own heads of 256: float32 above hd 128
+    # takes the CUDA-core backward; some of its gradients lie under
+    # AdamW's eps
+    out["reduced_f32_gemma3"] = train_reduced_f32(
+        report, dev, "gemma3-12b", "train reduced f32 gemma3 heads",
+        "flash_attention_bwd_cores", adamw_slack=True, head_dim=256,
+        num_layers=1)
     out["gemma3"] = train_gemma3(report, dev)
     out["seconds"] = time.perf_counter() - t0
     print(f"train phase: {out['seconds']:.1f} s")

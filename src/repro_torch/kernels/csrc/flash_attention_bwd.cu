@@ -1,28 +1,26 @@
-// Flash attention, backward, float32 and bf16 at hd 136 to 256, on the
-// CUDA cores (sm_90a).  The wrapper's bwd_variant table sends bf16 up to
-// hd 128 to flash_attention_bwd_wgmma.cu and float32 up to hd 128 to
-// flash_attention_bwd_tf32.cu (the tensor cores) instead.
+// Flash attention, backward, float32 at hd 136 to 256, on the CUDA cores
+// (sm_90a).  The wrapper's bwd_variant table sends float32 up to hd 128 to
+// flash_attention_bwd_tf32.cu and bf16 to flash_attention_bwd_wgmma.cu
+// (up to hd 128) and flash_attention_bwd_wgmma256.cu (above), all on the
+// tensor cores.
 //
 // The counterpart of the reference's custom VJP of its chunked flash
 // attention (src/repro/models/flash.py, _flash_bwd), which the TPU runs in
 // XLA ops, not in a Pallas kernel.  Given q [B, Sq, H, hd], k, v
 // [B, Sk, kv, hd], the forward's output o and the float32 log-sum-exp
 // lse [B, H, Sq] of its scores (either forward kernel writes it when asked)
-// and the output's gradient do, it returns dq, dk and dv in the inputs'
-// dtype, with the forward's masks (absolute positions q_pos = row +
-// q_offset; k_pos < Sk; causal: k_pos <= q_pos; window > 0: q_pos - k_pos <
-// window) and GQA (head h reads kv head h / (H / kv); dk and dv sum over
-// the group).
+// and the output's gradient do, it returns dq, dk and dv, with the
+// forward's masks (absolute positions q_pos = row + q_offset; k_pos < Sk;
+// causal: k_pos <= q_pos; window > 0: q_pos - k_pos < window) and GQA
+// (head h reads kv head h / (H / kv); dk and dv sum over the group).
 //
 // Arithmetic, the reference's: delta = sum over hd of o do in float32;
-// s = (q k) scale; p = exp(s - lse), 0 where masked; dv += p' do and
-// dp = do v, with p' = p rounded to v's dtype; ds = p (dp - delta) scale,
-// rounded to k's dtype before dq += ds k and dk += ds q.  Every product is
-// one float32 FMA of values exact in float32 (bf16 inputs widen exactly),
-// every sum a float32 accumulator; dq, dk and dv are rounded to the
-// inputs' dtype once, at the end.  A row that sees no key has p = 0
-// everywhere (its lse, -1e30, is never exponentiated: masked probabilities
-// are selected, not multiplied), so its gradients are zero.
+// s = (q k) scale; p = exp(s - lse), 0 where masked; dv += p do and
+// dp = do v; ds = p (dp - delta) scale before dq += ds k and dk += ds q.
+// Every product is one float32 FMA, every sum a float32 accumulator.  A
+// row that sees no key has p = 0 everywhere (its lse, -1e30, is never
+// exponentiated: masked probabilities are selected, not multiplied), so its
+// gradients are zero.
 //
 // Design: three kernels, no atomics, so two calls give the same bits.
 //  - flash_bwd_delta: one warp a (batch, position, head) row reduces
@@ -40,17 +38,16 @@
 //  (pair_scores): a thread owns a 2 x 2 block of the 32 x 32 pair,
 //  reading Q, dO, K and V from shared memory (rows padded to an odd number
 //  of floats, so the 16 key rows a warp reads fall in 16 banks), and
-//  leaves p' and ds in shared memory for the products over hd, in which a
+//  leaves p and ds in shared memory for the products over hd, in which a
 //  thread owns 4 rows (one each 8) by hd / 32 columns (one each 32).
-//  Operands are widened to float32 when staged; hd is padded with zeros
-//  to a multiple of 64 (HDP), so loops are fixed at compile time.
+//  hd is padded with zeros to a multiple of 64 (HDP: 192 or 256), so
+//  loops are fixed at compile time.
 //
 // The products run on the CUDA cores, not the tensor cores: a simple
 // kernel whose arithmetic is the reference's.  Its bound is the
 // backward's operations (5 products over the visible pairs, 2.5 times the
-// forward's) at the card's peak for the inputs' type; it recomputes s
+// forward's) at the card's peak for float32; it recomputes s
 // and dp once more for dq (7 products).
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -62,44 +59,10 @@ namespace {
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kBQ = 32;        // query rows a tile
 constexpr int kBK = 32;        // keys a tile
-constexpr int kPS = kBK + 1;   // floats a row of the pair tiles p', ds
-
-template <typename T>
-__device__ __forceinline__ float widen(T x);
-template <>
-__device__ __forceinline__ float widen<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// x rounded to T's precision (to nearest, ties to even), as a float.
-template <typename T>
-__device__ __forceinline__ float round_to(float x);
-template <>
-__device__ __forceinline__ float round_to<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ float round_to<__nv_bfloat16>(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-template <typename T>
-__device__ __forceinline__ T narrow(float x);
-template <>
-__device__ __forceinline__ float narrow<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+constexpr int kPS = kBK + 1;   // floats a row of the pair tiles p, ds
 
 // Shared memory of a block, in floats: K and V tiles, Q and dO tiles (rows
-// of HDP + 1), the pair tiles p' and ds, and the query rows' lse and delta.
+// of HDP + 1), the pair tiles p and ds, and the query rows' lse and delta.
 template <int HDP>
 struct Smem {
   static constexpr int HDS = HDP + 1;
@@ -114,10 +77,10 @@ struct Smem {
   static constexpr int kFloats = kDelta + kBQ;
 };
 
-// 32 rows of hd values, row r at src + r * stride, widened to float32 into
+// 32 rows of hd values, row r at src + r * stride, into
 // dst [32][HDP + 1]; rows past n_rows and columns past hd are zeros.
-template <typename T, int HDP>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src,
+template <int HDP>
+__device__ __forceinline__ void stage_rows(float* dst, const float* src,
                                            long long stride, int n_rows,
                                            int hd) {
   constexpr int HDS = HDP + 1;
@@ -125,7 +88,7 @@ __device__ __forceinline__ void stage_rows(float* dst, const T* src,
     const int r = idx / HDP;
     const int d = idx % HDP;
     float x = 0.f;
-    if (r < n_rows && d < hd) x = widen(src[r * stride + d]);
+    if (r < n_rows && d < hd) x = src[r * stride + d];
     dst[r * HDS + d] = x;
   }
 }
@@ -144,9 +107,9 @@ __device__ __forceinline__ void stage_row_stats(float* lse_s, float* delta_s,
 }
 
 // s and dp of query rows i0.. against keys k0.. (both tiles staged), then
-// p' = p rounded to T into ps (when WANT_P) and ds rounded to T into dss.
+// p into ps (when WANT_P) and ds into dss.
 // A thread owns rows ty, ty + 16 and keys tx, tx + 16 of the pair.
-template <typename T, int HDP, bool WANT_P>
+template <int HDP, bool WANT_P>
 __device__ __forceinline__ void pair_scores(float* smem, int i0, int k0,
                                             int sq, int sk, int causal,
                                             int window, int q_offset,
@@ -195,25 +158,25 @@ __device__ __forceinline__ void pair_scores(float* smem, int i0, int k0,
       // reference rounds its scaled scores
       const float p = ok ? expf(__fmul_rn(s[r][c], scale) - lse_s[i]) : 0.f;
       const float ds = p * (dp[r][c] - delta_s[i]) * scale;
-      if (WANT_P) ps[i * kPS + j] = round_to<T>(p);
-      dss[i * kPS + j] = round_to<T>(ds);
+      if (WANT_P) ps[i * kPS + j] = p;
+      dss[i * kPS + j] = ds;
     }
 }
 
 // delta[b, h, i] = sum over hd of o do, one warp a row of o [B, Sq, H, hd].
-template <typename T>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_delta(const T* __restrict__ o, const T* __restrict__ dout,
+    flash_bwd_delta(const float* __restrict__ o,
+                    const float* __restrict__ dout,
                     float* __restrict__ delta, long long rows, int sq, int h,
                     int hd) {
   const long long row =
       static_cast<long long>(blockIdx.x) * (kThreads / 32) + threadIdx.x / 32;
   if (row >= rows) return;
   const int lane = threadIdx.x % 32;
-  const T* a = o + row * hd;
-  const T* c = dout + row * hd;
+  const float* a = o + row * hd;
+  const float* c = dout + row * hd;
   float acc = 0.f;
-  for (int d = lane; d < hd; d += 32) acc = fmaf(widen(a[d]), widen(c[d]), acc);
+  for (int d = lane; d < hd; d += 32) acc = fmaf(a[d], c[d], acc);
 #pragma unroll
   for (int off = 16; off > 0; off /= 2)
     acc += __shfl_xor_sync(0xffffffffu, acc, off);
@@ -224,14 +187,15 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int HDP>
+template <int HDP>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkdv(const T* __restrict__ q, const T* __restrict__ k,
-                   const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dkdv(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, const float* __restrict__ dout,
                    const float* __restrict__ lse,
-                   const float* __restrict__ delta, T* __restrict__ dk,
-                   T* __restrict__ dv, int sq, int sk, int h, int kvh, int hd,
-                   int causal, int window, int q_offset, float scale) {
+                   const float* __restrict__ delta, float* __restrict__ dk,
+                   float* __restrict__ dv, int sq, int sk, int h, int kvh,
+                   int hd, int causal, int window, int q_offset,
+                   float scale) {
   using S = Smem<HDP>;
   constexpr int HDS = S::HDS;
   constexpr int NC = HDP / 32;  // columns a thread: lane + 32 m
@@ -247,8 +211,8 @@ __global__ void __launch_bounds__(kThreads)
   const long long k_at = (static_cast<long long>(b) * sk + k0) * kv_row +
                          static_cast<long long>(kh) * hd;
   const int n_keys = min(kBK, sk - k0);
-  stage_rows<T, HDP>(smem + S::kK, k + k_at, kv_row, n_keys, hd);
-  stage_rows<T, HDP>(smem + S::kV, v + k_at, kv_row, n_keys, hd);
+  stage_rows<HDP>(smem + S::kK, k + k_at, kv_row, n_keys, hd);
+  stage_rows<HDP>(smem + S::kV, v + k_at, kv_row, n_keys, hd);
 
   // Query rows that see a key of this tile.
   const int k_last = k0 + n_keys - 1;
@@ -273,15 +237,15 @@ __global__ void __launch_bounds__(kThreads)
       const long long q_at = (static_cast<long long>(b) * sq + i0) * q_row +
                              static_cast<long long>(hq) * hd;
       const int n_rows = min(kBQ, sq - i0);
-      stage_rows<T, HDP>(smem + S::kQ, q + q_at, q_row, n_rows, hd);
-      stage_rows<T, HDP>(smem + S::kDO, dout + q_at, q_row, n_rows, hd);
+      stage_rows<HDP>(smem + S::kQ, q + q_at, q_row, n_rows, hd);
+      stage_rows<HDP>(smem + S::kDO, dout + q_at, q_row, n_rows, hd);
       stage_row_stats(smem + S::kLse, smem + S::kDelta, lse, delta,
                       (static_cast<long long>(b) * h + hq) * sq, i0, sq);
       __syncthreads();
-      pair_scores<T, HDP, true>(smem, i0, k0, sq, sk, causal, window,
-                                q_offset, scale);
+      pair_scores<HDP, true>(smem, i0, k0, sq, sk, causal, window,
+                             q_offset, scale);
       __syncthreads();
-      // dv += p'^T do, dk += ds^T q: a thread owns keys warp + 8 r and
+      // dv += p^T do, dk += ds^T q: a thread owns keys warp + 8 r and
       // columns lane + 32 m.
 #pragma unroll 4
       for (int i = 0; i < kBQ; ++i) {
@@ -313,21 +277,21 @@ __global__ void __launch_bounds__(kThreads)
     for (int m = 0; m < NC; ++m) {
       const int d = lane + 32 * m;
       if (d < hd) {
-        dk[at + d] = narrow<T>(dk_acc[r][m]);
-        dv[at + d] = narrow<T>(dv_acc[r][m]);
+        dk[at + d] = dk_acc[r][m];
+        dv[at + d] = dv_acc[r][m];
       }
     }
   }
 }
 
-template <typename T, int HDP>
+template <int HDP>
 __global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const T* __restrict__ dout,
+    flash_bwd_dq(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse,
-                 const float* __restrict__ delta, T* __restrict__ dq, int sq,
-                 int sk, int h, int kvh, int hd, int causal, int window,
-                 int q_offset, float scale) {
+                 const float* __restrict__ delta, float* __restrict__ dq,
+                 int sq, int sk, int h, int kvh, int hd, int causal,
+                 int window, int q_offset, float scale) {
   using S = Smem<HDP>;
   constexpr int HDS = S::HDS;
   constexpr int NC = HDP / 32;
@@ -344,8 +308,8 @@ __global__ void __launch_bounds__(kThreads)
   const long long q_at = (static_cast<long long>(b) * sq + i0) * q_row +
                          static_cast<long long>(hq) * hd;
   const int n_rows = min(kBQ, sq - i0);
-  stage_rows<T, HDP>(smem + S::kQ, q + q_at, q_row, n_rows, hd);
-  stage_rows<T, HDP>(smem + S::kDO, dout + q_at, q_row, n_rows, hd);
+  stage_rows<HDP>(smem + S::kQ, q + q_at, q_row, n_rows, hd);
+  stage_rows<HDP>(smem + S::kDO, dout + q_at, q_row, n_rows, hd);
   stage_row_stats(smem + S::kLse, smem + S::kDelta, lse, delta,
                   (static_cast<long long>(b) * h + hq) * sq, i0, sq);
 
@@ -369,11 +333,11 @@ __global__ void __launch_bounds__(kThreads)
     const long long k_at = (static_cast<long long>(b) * sk + k0) * kv_row +
                            static_cast<long long>(kh) * hd;
     const int n_keys = min(kBK, sk - k0);
-    stage_rows<T, HDP>(smem + S::kK, k + k_at, kv_row, n_keys, hd);
-    stage_rows<T, HDP>(smem + S::kV, v + k_at, kv_row, n_keys, hd);
+    stage_rows<HDP>(smem + S::kK, k + k_at, kv_row, n_keys, hd);
+    stage_rows<HDP>(smem + S::kV, v + k_at, kv_row, n_keys, hd);
     __syncthreads();
-    pair_scores<T, HDP, false>(smem, i0, k0, sq, sk, causal, window,
-                               q_offset, scale);
+    pair_scores<HDP, false>(smem, i0, k0, sq, sk, causal, window,
+                            q_offset, scale);
     __syncthreads();
     // dq += ds k: a thread owns rows warp + 8 r and columns lane + 32 m.
 #pragma unroll 4
@@ -397,25 +361,25 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int m = 0; m < NC; ++m) {
       const int d = lane + 32 * m;
-      if (d < hd) dq[at + d] = narrow<T>(acc[r][m]);
+      if (d < hd) dq[at + d] = acc[r][m];
     }
   }
 }
 
-template <typename T, int HDP>
+template <int HDP>
 int launch(const void* q, const void* k, const void* v, const void* o,
            const void* dout, const float* lse, float* delta, void* dq,
            void* dk, void* dv, int b, int sq, int sk, int h, int kvh, int hd,
            int causal, int window, int q_offset, float scale,
            cudaStream_t stream) {
-  const T* tq = static_cast<const T*>(q);
-  const T* tk = static_cast<const T*>(k);
-  const T* tv = static_cast<const T*>(v);
-  const T* tdo = static_cast<const T*>(dout);
+  const float* tq = static_cast<const float*>(q);
+  const float* tk = static_cast<const float*>(k);
+  const float* tv = static_cast<const float*>(v);
+  const float* tdo = static_cast<const float*>(dout);
   constexpr size_t smem = sizeof(float) * Smem<HDP>::kFloats;
   static_assert(smem <= 232448, "more shared memory than a block can have");
-  auto dkdv = flash_bwd_dkdv<T, HDP>;
-  auto dqk = flash_bwd_dq<T, HDP>;
+  auto dkdv = flash_bwd_dkdv<HDP>;
+  auto dqk = flash_bwd_dq<HDP>;
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(
         dkdv, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -430,55 +394,29 @@ int launch(const void* q, const void* k, const void* v, const void* o,
   if (rows > 0) {
     const long long blocks = (rows + kThreads / 32 - 1) / (kThreads / 32);
     if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
-    flash_bwd_delta<T><<<static_cast<unsigned>(blocks), kThreads, 0,
-                         stream>>>(static_cast<const T*>(o), tdo, delta, rows,
-                                   sq, h, hd);
+    flash_bwd_delta<<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+        static_cast<const float*>(o), tdo, delta, rows, sq, h, hd);
   }
   if (sk > 0 && b > 0)
     dkdv<<<dim3((sk + kBK - 1) / kBK, kvh, b), kThreads, smem, stream>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        tq, tk, tv, tdo, lse, delta, static_cast<float*>(dk),
+        static_cast<float*>(dv),
         sq, sk, h, kvh, hd, causal, window, q_offset, scale);
   if (sq > 0 && b > 0)
     dqk<<<dim3((sq + kBQ - 1) / kBQ, h, b), kThreads, smem, stream>>>(
-        tq, tk, tv, tdo, lse, delta, static_cast<T*>(dq), sq, sk, h, kvh, hd,
-        causal, window, q_offset, scale);
+        tq, tk, tv, tdo, lse, delta, static_cast<float*>(dq), sq, sk, h, kvh,
+        hd, causal, window, q_offset, scale);
   return static_cast<int>(cudaGetLastError());
-}
-
-template <typename T>
-int dispatch(int hd_pad, const void* q, const void* k, const void* v,
-             const void* o, const void* dout, const float* lse, float* delta,
-             void* dq, void* dk, void* dv, int b, int sq, int sk, int h,
-             int kvh, int hd, int causal, int window, int q_offset,
-             float scale, cudaStream_t s) {
-  switch (hd_pad) {
-    case 64:
-      return launch<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq,
-                           sk, h, kvh, hd, causal, window, q_offset, scale, s);
-    case 128:
-      return launch<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq,
-                            sk, h, kvh, hd, causal, window, q_offset, scale,
-                            s);
-    case 192:
-      return launch<T, 192>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq,
-                            sk, h, kvh, hd, causal, window, q_offset, scale,
-                            s);
-    default:
-      return launch<T, 256>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq,
-                            sk, h, kvh, hd, causal, window, q_offset, scale,
-                            s);
-  }
 }
 
 }  // namespace
 
-// Packed arguments: q, k, v, o, do (all of one dtype, contiguous), lse
-// (float32 [B, H, Sq], the forward's), delta (float32 [B, H, Sq] scratch),
-// dq, dk, dv (outputs, the inputs' dtype), b, sq, sk, h, kvh, hd (a
-// multiple of 8 up to 256), hd_pad (hd rounded up to a multiple of 64),
-// dtype (0 float32, 1 bf16), causal, window, q_offset, scale, stream.
-// Every element of dk and dv is written (zeros for keys no row sees), and
-// of dq.
+// Packed arguments: q, k, v, o, do (float32, contiguous), lse (float32
+// [B, H, Sq], the forward's), delta (float32 [B, H, Sq] scratch), dq, dk,
+// dv (float32 outputs), b, sq, sk, h, kvh, hd (a multiple of 8 from 136
+// to 256), hd_pad (hd rounded up to a multiple of 64), causal, window,
+// q_offset, scale, stream.  Every element of dk and dv is written (zeros
+// for keys no row sees), and of dq.
 extern "C" int repro_flash_attention_bwd(const char* packed) {
   const PackedArgs a{packed};
   const void* q = a.ptr<const void>(0);
@@ -493,18 +431,15 @@ extern "C" int repro_flash_attention_bwd(const char* packed) {
   void* dv = a.ptr<void>(9);
   const int b = a.i32(10), sq = a.i32(11), sk = a.i32(12), h = a.i32(13),
             kvh = a.i32(14), hd = a.i32(15), hd_pad = a.i32(16),
-            dtype = a.i32(17), causal = a.i32(18), window = a.i32(19),
-            q_offset = a.i32(20);
-  const float scale = a.f32(21);
-  cudaStream_t s = static_cast<cudaStream_t>(a.ptr<void>(22));
-  if (hd % 8 != 0 || hd < 8 || hd > 256 || kvh < 1 || h % kvh != 0 ||
-      hd_pad != (hd + 63) / 64 * 64 || (dtype != 0 && dtype != 1))
+            causal = a.i32(17), window = a.i32(18), q_offset = a.i32(19);
+  const float scale = a.f32(20);
+  cudaStream_t s = static_cast<cudaStream_t>(a.ptr<void>(21));
+  if (hd % 8 != 0 || hd <= 128 || hd > 256 || kvh < 1 || h % kvh != 0 ||
+      hd_pad != (hd + 63) / 64 * 64)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (dtype == 0)
-    return dispatch<float>(hd_pad, q, k, v, o, dout, lse, delta, dq, dk, dv,
-                           b, sq, sk, h, kvh, hd, causal, window, q_offset,
-                           scale, s);
-  return dispatch<__nv_bfloat16>(hd_pad, q, k, v, o, dout, lse, delta, dq, dk,
-                                 dv, b, sq, sk, h, kvh, hd, causal, window,
-                                 q_offset, scale, s);
+  if (hd_pad == 192)
+    return launch<192>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, sk, h,
+                       kvh, hd, causal, window, q_offset, scale, s);
+  return launch<256>(q, k, v, o, dout, lse, delta, dq, dk, dv, b, sq, sk, h,
+                     kvh, hd, causal, window, q_offset, scale, s);
 }

@@ -25,18 +25,21 @@ than before.  :func:`flash_attention_bwd` takes the forward's inputs, its
 output and lse and the output's gradient and returns dq, dk and dv with
 the reference's VJP arithmetic (``repro.models.flash._flash_bwd``): on a
 CPU tensor the plain version (:func:`repro_torch.models.flash.
-flash_bwd_ref`), on a CUDA tensor one of three kernels, chosen by the
+flash_bwd_ref`), on a CUDA tensor one of four kernels, chosen by the
 dtype and the head dim alone (:func:`bwd_variant`), each three kernels with
 no atomics, so two calls give the same bits:
 
 - bfloat16 up to hd 128: ``csrc/flash_attention_bwd_wgmma.cu``
   (``flash_bwd_wgmma_delta``, ``_dkdv``, ``_dq``), wgmma on bf16 tiles
   staged by TMA, the rows tiled as :func:`bwd_tiles` says;
+- bfloat16 from hd 136 to 256: ``csrc/flash_attention_bwd_wgmma256.cu``
+  (``flash_bwd_wgmma256_delta``, ``_dkdv``, ``_dq``), the same rows and
+  arithmetic, the dk/dv pass's head dim split between its two warpgroups;
 - float32 up to hd 128: ``csrc/flash_attention_bwd_tf32.cu``
   (``flash_bwd_tf32x3_delta``, ``_dkdv``, ``_dq``), mma.sync on TF32
   tiles, every product taken as hi·lo + lo·hi + hi·hi as the float32
   forward takes it;
-- float32 and bfloat16 beyond hd 128: ``csrc/flash_attention_bwd.cu``
+- float32 beyond hd 128: ``csrc/flash_attention_bwd.cu``
   (``flash_bwd_delta``, ``flash_bwd_dkdv``, ``flash_bwd_dq``) on the CUDA
   cores.
 
@@ -58,30 +61,37 @@ from repro_torch.models.flash import (NEG_INF, attention_lse_ref,
 
 WGMMA = "flash_fwd_wgmma"          # the kernels' symbols, as profilers name them
 TF32X3 = "flash_fwd_tf32x3"
-BWD_WGMMA = "flash_bwd_wgmma"      # the backward on the tensor cores (bf16),
+BWD_WGMMA = "flash_bwd_wgmma"      # the backward on the tensor cores (bf16
+BWD_WGMMA256 = "flash_bwd_wgmma256"  # up to hd 128, and above),
 BWD_TF32X3 = "flash_bwd_tf32x3"    # on the TF32 tensor cores (float32)
 BWD = "flash_bwd"                  # and on the CUDA cores, whose kernels are
 BWD_KERNELS = {BWD_WGMMA: ("flash_bwd_wgmma_delta", "flash_bwd_wgmma_dkdv",
                            "flash_bwd_wgmma_dq"),
+               BWD_WGMMA256: ("flash_bwd_wgmma256_delta",
+                              "flash_bwd_wgmma256_dkdv",
+                              "flash_bwd_wgmma256_dq"),
                BWD_TF32X3: ("flash_bwd_tf32x3_delta", "flash_bwd_tf32x3_dkdv",
                             "flash_bwd_tf32x3_dq"),
                BWD: ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")}
 _SOURCE = {WGMMA: "flash_attention_wgmma", TF32X3: "flash_attention",
            BWD_WGMMA: "flash_attention_bwd_wgmma",
+           BWD_WGMMA256: "flash_attention_bwd_wgmma256",
            BWD_TF32X3: "flash_attention_bwd_tf32", BWD: "flash_attention_bwd"}
 # kernel -> its C function and packed arguments.  Forward: 4 pointers, the
 # sizes, hd_pad and key tile, masks, scale, stream, the lse pointer (0: not
 # written) (csrc/flash_attention*.cu).  Backward: 10 pointers, the sizes,
-# hd_pad, dtype, masks, scale, stream (csrc/flash_attention_bwd.cu and
-# csrc/flash_attention_bwd_tf32.cu, which takes dtype 0 only); the
-# bf16 one 10 pointers (the delta scratch holds the row tiles' statistics),
-# the sizes, hd_pad, the row tiling, masks, scale, stream
-# (csrc/flash_attention_bwd_wgmma.cu).
+# hd_pad, masks, scale, stream (csrc/flash_attention_bwd.cu); the same
+# with a dtype after hd_pad, always 0, float32
+# (csrc/flash_attention_bwd_tf32.cu); the bf16 ones 10 pointers (the delta
+# scratch holds the row tiles' statistics), the sizes, hd_pad, the row
+# tiling, masks, scale, stream (csrc/flash_attention_bwd_wgmma.cu and
+# csrc/flash_attention_bwd_wgmma256.cu).
 _ENTRY = {WGMMA: ("repro_flash_attention_wgmma", "15qdqq"),
           TF32X3: ("repro_flash_attention_tf32x3", "15qdqq"),
           BWD_WGMMA: ("repro_flash_attention_bwd_wgmma", "22qdq"),
+          BWD_WGMMA256: ("repro_flash_attention_bwd_wgmma256", "22qdq"),
           BWD_TF32X3: ("repro_flash_attention_bwd_tf32", "21qdq"),
-          BWD: ("repro_flash_attention_bwd", "21qdq")}
+          BWD: ("repro_flash_attention_bwd", "20qdq")}
 _bound = {}               # kernel -> its C function, bound at its first launch
 
 
@@ -95,10 +105,11 @@ def _bind(kernel: str):
 @dataclasses.dataclass(frozen=True)
 class Variant:
     """Which kernel takes a call, and its tiles."""
-    kernel: str      # WGMMA or TF32X3 (variant); BWD_WGMMA, BWD_TF32X3 or
-                     # BWD (bwd_variant)
+    kernel: str      # WGMMA or TF32X3 (variant); BWD_WGMMA, BWD_WGMMA256,
+                     # BWD_TF32X3 or BWD (bwd_variant)
     hd_pad: int      # head dim as the kernel's shared-memory tiles hold it
-    key_tile: int    # keys a tile (BWD_WGMMA, BWD_TF32X3: a dk/dv block)
+    key_tile: int    # keys a tile (the backward's tensor-core kernels: a
+                     # dk/dv block)
 
 
 def variant(dtype: torch.dtype, hd: int) -> Variant:
@@ -135,13 +146,18 @@ def bwd_variant(dtype: torch.dtype, hd: int) -> Variant:
     ========  ========  ===================================================
     bfloat16  8 - 128   ``BWD_WGMMA``: hd padded with zeros to 64 or 128,
                         128 keys a dk/dv block
-    bfloat16  136 - 256 ``BWD`` (CUDA cores): dk and dv of 64 keys would
-                        take 192 - 256 float32 registers a thread
+    bfloat16  136 - 256 ``BWD_WGMMA256``: hd padded with zeros to 192 or
+                        256, 64 keys a dk/dv block, its head dim split
+                        between two warpgroups (dk and dv of 64 keys over
+                        the whole head dim would take 192 - 256 float32
+                        registers a thread)
     float32   8 - 128   ``BWD_TF32X3``: hd padded with zeros to 64 or 128,
                         128 keys a dk/dv block
-    float32   136 - 256 ``BWD`` (CUDA cores): hd is not split across warps,
-                        and dk and dv of 16 keys a warp would take 192 -
-                        256 float32 registers a thread
+    float32   136 - 256 ``BWD`` (CUDA cores): the TF32 kernel does not
+                        split hd across warps, and dk and dv of 16 keys a
+                        warp would take 192 - 256 float32 registers a
+                        thread; no float32 tensor-core kernel takes these
+                        head dims yet
     ========  ========  ===================================================
 
     ``BWD`` pads hd to a multiple of 64 and takes 32 keys a tile.
@@ -150,11 +166,13 @@ def bwd_variant(dtype: torch.dtype, hd: int) -> Variant:
         raise ValueError(f"flash_attention_bwd: head_dim {hd} must be a "
                          f"multiple of 8 up to 256")
     hd_pad = -(-hd // 64) * 64
-    if dtype == torch.bfloat16 and hd_pad <= 128:
-        return Variant(BWD_WGMMA, hd_pad, 128)
-    if dtype == torch.float32 and hd_pad <= 128:
-        return Variant(BWD_TF32X3, hd_pad, 128)
-    if dtype in (torch.bfloat16, torch.float32):
+    if dtype == torch.bfloat16:
+        if hd_pad <= 128:
+            return Variant(BWD_WGMMA, hd_pad, 128)
+        return Variant(BWD_WGMMA256, hd_pad, 64)
+    if dtype == torch.float32:
+        if hd_pad <= 128:
+            return Variant(BWD_TF32X3, hd_pad, 128)
         return Variant(BWD, hd_pad, 32)
     raise ValueError(f"flash_attention_bwd: q, k and v must share float32 "
                      f"or bfloat16, got {dtype}")
@@ -162,12 +180,12 @@ def bwd_variant(dtype: torch.dtype, hd: int) -> Variant:
 
 @dataclasses.dataclass(frozen=True)
 class BwdTiles:
-    """How ``BWD_WGMMA`` tiles a kv head's query rows: its g = H / kv heads
-    at every position, flattened position-major (row = position * hb +
-    head), 64 rows a tile: ``hb`` heads (the largest divisor of g up to 64)
-    at ``pos_per`` = 64 // hb positions, ``tiles`` position tiles over Sq
-    and ``nhc`` = g // hb head blocks.  Rows past ``pos_per * hb`` of a
-    tile are padding."""
+    """How ``BWD_WGMMA`` and ``BWD_WGMMA256`` tile a kv head's query rows:
+    its g = H / kv heads at every position, flattened position-major (row =
+    position * hb + head), 64 rows a tile: ``hb`` heads (the largest
+    divisor of g up to 64) at ``pos_per`` = 64 // hb positions, ``tiles``
+    position tiles over Sq and ``nhc`` = g // hb head blocks.  Rows past
+    ``pos_per * hb`` of a tile are padding."""
     hb: int
     pos_per: int
     tiles: int
@@ -294,15 +312,16 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     masks = (int(bool(causal)), int(window), int(q_offset), hd ** -0.5,
              _build.stream_of(q))
     fn = _bind(plan.kernel)
-    if plan.kernel == BWD_WGMMA:
+    if plan.kernel in (BWD_WGMMA, BWD_WGMMA256):
         rows = bwd_tiles(h, kv, sq)
         delta = torch.empty(rows.stats_numel(b, kv), dtype=torch.float32,
                             device=q.device)
         sizes = (b, sq, sk, h, kv, hd, plan.hd_pad, rows.hb, rows.tiles)
     else:
         delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-        sizes = (b, sq, sk, h, kv, hd, plan.hd_pad,
-                 int(q.dtype == torch.bfloat16))
+        sizes = (b, sq, sk, h, kv, hd, plan.hd_pad)
+        if plan.kernel == BWD_TF32X3:
+            sizes += (0,)   # its dtype: float32
     ptrs = (q, k, v, o, do, lse, delta, dq, dk, dv)
     _build.check(fn(*(x.data_ptr() for x in ptrs), *sizes, *masks), what)
     flash_attention_bwd.launches += 1
@@ -311,5 +330,5 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.launches_by_kernel = {BWD_WGMMA: 0, BWD_TF32X3: 0,
-                                          BWD: 0}
+flash_attention_bwd.launches_by_kernel = {BWD_WGMMA: 0, BWD_WGMMA256: 0,
+                                          BWD_TF32X3: 0, BWD: 0}

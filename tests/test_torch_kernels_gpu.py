@@ -801,8 +801,11 @@ FLASH_BWD = [
     (1, 64, 64, 4, 4, 8, True, 0, 0),            # hd 8
     (4, 64, 64, 4, 2, 32, True, 0, 0),           # the reduced configs' heads
     (1, 300, 300, 12, 4, 96, True, 100, 0),      # g 3, window, hd 96
-    (1, 160, 160, 8, 4, 192, True, 0, 0),        # hd 192: the CUDA cores
+    (1, 160, 160, 8, 4, 192, True, 0, 0),        # hd 192: three 64-column
+                                                 # blocks split 2 / 1
     (1, 100, 300, 6, 2, 64, False, 50, 120),     # a window, not causal
+    (1, 200, 260, 8, 2, 136, True, 0, 60),       # hd 136 padded to 192
+    (1, 150, 150, 18, 2, 192, True, 40, -20),    # hd 192, g 9, window, dead
 ]
 
 
@@ -819,9 +822,10 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kv, hd,
                                         causal, window, q_offset):
     """dq, dk and dv within 2e-4 (float32) or 2e-2 of the largest (bf16)
     of the plain version, one launch a call of the kernel the (dtype, hd)
-    table names (up to hd 128, bf16: the wgmma kernel, float32: the TF32
-    one), bit-identical between calls (no atomics), zero for rows that see
-    no key."""
+    table names (bf16: the wgmma kernel up to hd 128 and the split-hd one
+    above; float32: the TF32 one up to hd 128 and the CUDA cores' above),
+    bit-identical between calls (no atomics), zero for rows that see no
+    key."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(31)
     q, k, v, do = _bwd_inputs(gen, dtype, b, sq, sk, h, kv, hd, cuda)
@@ -829,7 +833,10 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kv, hd,
     o, lse = fa.flash_attention(q, k, v, return_lse=True, **kw)
     kernel = fa.bwd_variant(dtype, hd).kernel
     assert (kernel == fa.BWD_WGMMA) == (dtype == torch.bfloat16 and hd <= 128)
+    assert (kernel == fa.BWD_WGMMA256) == (dtype == torch.bfloat16
+                                           and hd > 128)
     assert (kernel == fa.BWD_TF32X3) == (dtype == torch.float32 and hd <= 128)
+    assert (kernel == fa.BWD) == (dtype == torch.float32 and hd > 128)
     before = fa.flash_attention_bwd.launches
     by_kernel = fa.flash_attention_bwd.launches_by_kernel[kernel]
     got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)
@@ -875,6 +882,41 @@ def test_flash_bwd_kernel_replays_in_a_cuda_graph(cuda):
     o, lse = fa.flash_attention(q, k, v, return_lse=True)
     assert fa.bwd_variant(q.dtype, 128).kernel == fa.BWD_WGMMA
     want = fa.flash_attention_bwd(q, k, v, o, do, lse)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fa.flash_attention_bwd(q, k, v, o, do, lse)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = fa.flash_attention_bwd(q, k, v, o, do, lse)
+    for x in out:
+        x.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for g_, w_ in zip(out, want):
+        assert torch.equal(g_, w_)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [136, 256])
+def test_flash_bwd_wgmma256_kernel_one_launch_and_replays(cuda, hd):
+    """The bf16 backward above hd 128 at gemma3-12b's 16/8 heads: one
+    launch of the split-hd kernel a call, two calls bit-identical, and the
+    same bits replayed from a CUDA graph (its wrapper allocates only the
+    outputs and the statistics scratch and never syncs)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(36)
+    q, k, v, do = _bwd_inputs(gen, torch.bfloat16, 2, 256, 256, 16, 8, hd,
+                              cuda)
+    o, lse = fa.flash_attention(q, k, v, return_lse=True)
+    assert fa.bwd_variant(q.dtype, hd).kernel == fa.BWD_WGMMA256
+    before = fa.flash_attention_bwd.launches_by_kernel[fa.BWD_WGMMA256]
+    want = fa.flash_attention_bwd(q, k, v, o, do, lse)
+    again = fa.flash_attention_bwd(q, k, v, o, do, lse)
+    assert (fa.flash_attention_bwd.launches_by_kernel[fa.BWD_WGMMA256]
+            == before + 2)
+    assert all(torch.equal(x, y) for x, y in zip(want, again))
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):

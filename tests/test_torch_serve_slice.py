@@ -263,6 +263,7 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
                                "flash_attention", "flash_attention_bwd",
                                "flash_attention_bwd_tf32",
                                "flash_attention_bwd_wgmma",
+                               "flash_attention_bwd_wgmma256",
                                "flash_attention_wgmma", "paged_attention",
                                "stream"]
     with pytest.raises(RuntimeError, match="nvcc not found"):
