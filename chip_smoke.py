@@ -151,8 +151,8 @@ prints no result):
               their plain version (the bf16 wgmma kernel and the float32
               three-term TF32 kernel at the training shapes, B 4 x S 1024,
               32/8 heads of 128, causal, the split-hd bf16 wgmma kernel and
-              the float32 CUDA-core kernel at gemma3-12b's, 16/8 heads of
-              256, and both dtypes at the mask and head-size cases, a row
+              the split-hd float32 TF32 kernel at gemma3-12b's, 16/8 heads
+              of 256, and both dtypes at the mask and head-size cases, a row
               that sees no key among them; bf16
               within 2e-2 of the largest gradient, float32 within 2e-4;
               each call must launch the kernel the (dtype, hd) table
@@ -163,7 +163,7 @@ prints no result):
               bound (the backward's five products, 2.5 times the forward's
               operations; three TF32 products for float32, beside one
               float32 product on the CUDA cores) and the floor of each
-              kernel's design (seven products; nine for the split-hd
+              kernel's design (seven products; nine for the bf16 split-hd
               kernel, which computes s and dp once in each of its dk/dv
               warpgroups), device time by kernel; the forward kernels
               at the sequence forward's shapes with the lse not asked for
@@ -177,8 +177,8 @@ prints no result):
               optimizer split; one reduced float32 step on the card against
               the same step on the CPU (the plain versions) from the same
               state, within 1e-4, and the same for reduced gemma3-12b at
-              its own heads of 256 (1 layer; the float32 backward on the
-              CUDA cores; each parameter within 1e-4 plus AdamW's
+              its own heads of 256 (1 layer; the split-hd float32 TF32
+              backward; each parameter within 1e-4 plus AdamW's
               first-step slope times its gradient's difference);
               gemma3-12b at full width on 1 of its 48 layers in bf16
               (heads of 256: the split-hd wgmma backward), a warm-up step
@@ -332,9 +332,9 @@ KERNELS = {
         replaces="src/repro/kernels/stream.py:62", paths=(),
         headline="triad float32"),
     # no pallas_call: the counterpart of the reference's XLA custom VJP;
-    # one wrapper, four kernels (bwd_variant: bf16 on the tensor cores up
-    # to hd 128 and, with the head dim split, above; float32 up to hd 128
-    # on the TF32 tensor cores, above hd 128 on the CUDA cores)
+    # one wrapper, four kernels (bwd_variant: bf16 on the tensor cores and
+    # float32 on the TF32 tensor cores, each up to hd 128 and, with the
+    # head dim split, above)
     "flash_attention_bwd": dict(
         fns=(fa.flash_attention_bwd,), variant=fa.BWD_WGMMA,
         source="src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma.cu",
@@ -350,9 +350,9 @@ KERNELS = {
         source="src/repro_torch/kernels/csrc/flash_attention_bwd_wgmma256.cu",
         replaces="src/repro/models/flash.py:176", paths=(),
         headline="gemma3 bf16"),
-    "flash_attention_bwd_cores": dict(
-        fns=(fa.flash_attention_bwd,), variant=fa.BWD,
-        source="src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_tf32_256": dict(
+        fns=(fa.flash_attention_bwd,), variant=fa.BWD_TF32X3_256,
+        source="src/repro_torch/kernels/csrc/flash_attention_bwd_tf32_256.cu",
         replaces="src/repro/models/flash.py:176", paths=(),
         headline="gemma3 f32"),
 }
@@ -2999,9 +2999,10 @@ BWD_ROWS = {k["variant"]: name for name, k in KERNELS.items()
             if k["fns"] == (fa.flash_attention_bwd,)}
 # the floor of each backward kernel's design, in products over the visible
 # pairs (the backward needs five): s and dp computed in both passes, and in
-# the split-hd kernel once more in its second dk/dv warpgroup
-BWD_DESIGN_PRODUCTS = {fa.BWD_WGMMA: 7, fa.BWD_TF32X3: 7, fa.BWD: 7,
-                       fa.BWD_WGMMA256: 9}
+# the bf16 split-hd kernel once more in its second dk/dv warpgroup (the
+# float32 one's warps share the halves of s and dp through shared memory)
+BWD_DESIGN_PRODUCTS = {fa.BWD_WGMMA: 7, fa.BWD_TF32X3: 7,
+                       fa.BWD_WGMMA256: 9, fa.BWD_TF32X3_256: 7}
 # gemma3-12b at full width, cut to 1 of its 48 layers (a sliding-window
 # layer, whose 1,024-token window hides no key at S 1024): its heads of 256
 # take the split-hd wgmma backward in bf16.
@@ -3078,7 +3079,7 @@ def check_flash_bwd(report: dict, gen, dev="cuda") -> dict:
     """The backward kernels at the training shapes (B 4 x S 1024, causal):
     bf16 (the wgmma kernel) and float32 (the three-term TF32 kernel) at
     granite-3-8b's 32/8 heads of 128, bf16 (the split-hd wgmma kernel) and
-    float32 (the CUDA cores' kernel) at gemma3-12b's 16/8 heads of 256,
+    float32 (the split-hd TF32 kernel) at gemma3-12b's 16/8 heads of 256,
     each timed in turns with the library's backward (``torch.autograd.grad``
     through ``scaled_dot_product_attention``, shown for comparison; five
     rounds, medians), beside its bound (the backward's five products over
@@ -3086,7 +3087,7 @@ def check_flash_bwd(report: dict, gen, dev="cuda") -> dict:
     tensor cores' peak; float32 as three TF32 products at the TF32 peak, and
     as one float32 product on the CUDA cores), the floor of the kernel's
     design (``BWD_DESIGN_PRODUCTS``: seven products, s and dp computed in
-    both passes; nine for the split-hd kernel), its plain version and its
+    both passes; nine for the bf16 split-hd kernel), its plain version and its
     device time by kernel; then both dtypes at the mask and head-size
     cases, each held to the kernel the (dtype, hd) table names."""
     b, s = TRAIN["batch"], TRAIN["seq"]
@@ -3100,7 +3101,7 @@ def check_flash_bwd(report: dict, gen, dev="cuda") -> dict:
             (torch.bfloat16, "gemma3 bf16", (16, 8, 256), BF16_FLOP_PER_S,
              1, 50),
             (torch.float32, "gemma3 f32", (16, 8, 256), TF32_FLOP_PER_S, 3,
-             3)):
+             10)):
         kernel = fa.bwd_variant(dtype, hd).kernel
         name = BWD_ROWS[kernel]
         kernels = fa.BWD_KERNELS[kernel]
@@ -3575,11 +3576,11 @@ def train_phase(report: dict, dev="cuda") -> dict:
     torch.cuda.empty_cache()
     out["reduced_f32"] = train_reduced_f32(report, dev)
     # reduced gemma3-12b at its own heads of 256: float32 above hd 128
-    # takes the CUDA-core backward; some of its gradients lie under
+    # takes the split-hd TF32 backward; some of its gradients lie under
     # AdamW's eps
     out["reduced_f32_gemma3"] = train_reduced_f32(
         report, dev, "gemma3-12b", "train reduced f32 gemma3 heads",
-        "flash_attention_bwd_cores", adamw_slack=True, head_dim=256,
+        "flash_attention_bwd_tf32_256", adamw_slack=True, head_dim=256,
         num_layers=1)
     out["gemma3"] = train_gemma3(report, dev)
     out["seconds"] = time.perf_counter() - t0

@@ -73,7 +73,7 @@
 //  - The softmax: a row's values sit on a quad of lanes, its max reduced
 //    with __shfl_xor_sync over offsets 1 and 2; l is kept per lane and
 //    summed over the quad at the end.
-//  - The log-sum-exp for the backward (flash_attention_bwd.cu): an
+//  - The log-sum-exp for the backward (flash_attention_bwd_tf32*.cu): an
 //    instantiation of its own writes each row's m ln 2 + log l (m in log2
 //    units) to lse [B, H, Sq] from the quad's first lane, -1e30 for a row
 //    that sees no key; the serving instantiation writes nothing more.

@@ -3,8 +3,9 @@
 // The counterpart of the reference's custom VJP of its chunked flash
 // attention (src/repro/models/flash.py, _flash_bwd), which the TPU runs in
 // XLA ops, not in a Pallas kernel, for bfloat16 inputs with hd up to 128
-// (the wrapper's bwd_variant table; float32, and bf16 beyond hd 128, take
-// flash_attention_bwd.cu on the CUDA cores).  Given q [B, Sq, H, hd], k, v
+// (the wrapper's bwd_variant table; bf16 beyond hd 128 takes
+// flash_attention_bwd_wgmma256.cu, float32 flash_attention_bwd_tf32.cu and
+// flash_attention_bwd_tf32_256.cu).  Given q [B, Sq, H, hd], k, v
 // [B, Sk, kv, hd], the forward's output o and float32 log-sum-exp lse
 // [B, H, Sq] and the output's gradient do, it returns dq, dk and dv in
 // bf16, with the forward's masks (absolute positions q_pos = row +

@@ -5,8 +5,8 @@
 // attention (src/repro/models/flash.py, _flash_bwd), which the TPU runs in
 // XLA ops, not in a Pallas kernel, for bfloat16 inputs with hd above 128
 // (the wrapper's bwd_variant table: bf16 up to hd 128 takes
-// flash_attention_bwd_wgmma.cu, float32 above hd 128 flash_attention_bwd.cu
-// on the CUDA cores).  Given q [B, Sq, H, hd], k, v [B, Sk, kv, hd], the
+// flash_attention_bwd_wgmma.cu, float32 above hd 128
+// flash_attention_bwd_tf32_256.cu on the TF32 tensor cores).  Given q [B, Sq, H, hd], k, v [B, Sk, kv, hd], the
 // forward's output o and float32 log-sum-exp lse [B, H, Sq] and the
 // output's gradient do, it returns dq, dk and dv in bf16, with the
 // forward's masks (absolute positions q_pos = row + q_offset; k_pos < Sk;

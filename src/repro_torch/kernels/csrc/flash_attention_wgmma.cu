@@ -66,7 +66,7 @@
 //  - Output: acc / max(l, 1e-30) as bf16 into the item's own Q buffer in
 //    the swizzled layout, then TMA stores, which leave out the rows past Sq
 //    and the columns past hd.  For the training path's backward
-//    (flash_attention_bwd.cu) an instantiation of its own also writes each
+//    (flash_attention_bwd_wgmma*.cu) an instantiation of its own writes each
 //    row's log-sum-exp, m scale + log l in float32, to lse [B, H, Sq] from
 //    the lane that owns the row (-1e30 for a row that sees no key); the
 //    serving forward's instantiation writes nothing more than before.

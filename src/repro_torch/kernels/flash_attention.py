@@ -39,9 +39,12 @@ no atomics, so two calls give the same bits:
   (``flash_bwd_tf32x3_delta``, ``_dkdv``, ``_dq``), mma.sync on TF32
   tiles, every product taken as hi·lo + lo·hi + hi·hi as the float32
   forward takes it;
-- float32 beyond hd 128: ``csrc/flash_attention_bwd.cu``
-  (``flash_bwd_delta``, ``flash_bwd_dkdv``, ``flash_bwd_dq``) on the CUDA
-  cores.
+- float32 from hd 136 to 256: ``csrc/flash_attention_bwd_tf32_256.cu``
+  (``flash_bwd_tf32x3_256_delta``, ``_dkdv``, ``_dq``), the same
+  arithmetic, two warps sharing each 16 keys (rows) of a block: each sums
+  half of S's 32-column chunks, the two add their partials through shared
+  memory, and each takes the tile's product over its own half of the
+  head dim.
 
 The autograd function of :mod:`repro_torch.models.flash` ties the forward
 and the backward together.
@@ -61,10 +64,10 @@ from repro_torch.models.flash import (NEG_INF, attention_lse_ref,
 
 WGMMA = "flash_fwd_wgmma"          # the kernels' symbols, as profilers name them
 TF32X3 = "flash_fwd_tf32x3"
-BWD_WGMMA = "flash_bwd_wgmma"      # the backward on the tensor cores (bf16
-BWD_WGMMA256 = "flash_bwd_wgmma256"  # up to hd 128, and above),
-BWD_TF32X3 = "flash_bwd_tf32x3"    # on the TF32 tensor cores (float32)
-BWD = "flash_bwd"                  # and on the CUDA cores, whose kernels are
+BWD_WGMMA = "flash_bwd_wgmma"      # the backward: bf16 on the tensor cores
+BWD_WGMMA256 = "flash_bwd_wgmma256"      # up to hd 128 and above, float32
+BWD_TF32X3 = "flash_bwd_tf32x3"          # on the TF32 tensor cores up to hd
+BWD_TF32X3_256 = "flash_bwd_tf32x3_256"  # 128 and above; their kernels:
 BWD_KERNELS = {BWD_WGMMA: ("flash_bwd_wgmma_delta", "flash_bwd_wgmma_dkdv",
                            "flash_bwd_wgmma_dq"),
                BWD_WGMMA256: ("flash_bwd_wgmma256_delta",
@@ -72,17 +75,20 @@ BWD_KERNELS = {BWD_WGMMA: ("flash_bwd_wgmma_delta", "flash_bwd_wgmma_dkdv",
                               "flash_bwd_wgmma256_dq"),
                BWD_TF32X3: ("flash_bwd_tf32x3_delta", "flash_bwd_tf32x3_dkdv",
                             "flash_bwd_tf32x3_dq"),
-               BWD: ("flash_bwd_delta", "flash_bwd_dkdv", "flash_bwd_dq")}
+               BWD_TF32X3_256: ("flash_bwd_tf32x3_256_delta",
+                                "flash_bwd_tf32x3_256_dkdv",
+                                "flash_bwd_tf32x3_256_dq")}
 _SOURCE = {WGMMA: "flash_attention_wgmma", TF32X3: "flash_attention",
            BWD_WGMMA: "flash_attention_bwd_wgmma",
            BWD_WGMMA256: "flash_attention_bwd_wgmma256",
-           BWD_TF32X3: "flash_attention_bwd_tf32", BWD: "flash_attention_bwd"}
+           BWD_TF32X3: "flash_attention_bwd_tf32",
+           BWD_TF32X3_256: "flash_attention_bwd_tf32_256"}
 # kernel -> its C function and packed arguments.  Forward: 4 pointers, the
 # sizes, hd_pad and key tile, masks, scale, stream, the lse pointer (0: not
-# written) (csrc/flash_attention*.cu).  Backward: 10 pointers, the sizes,
-# hd_pad, masks, scale, stream (csrc/flash_attention_bwd.cu); the same
-# with a dtype after hd_pad, always 0, float32
-# (csrc/flash_attention_bwd_tf32.cu); the bf16 ones 10 pointers (the delta
+# written) (csrc/flash_attention*.cu).  Backward, float32: 10 pointers,
+# the sizes, hd_pad, a dtype, always 0 (float32), masks, scale, stream
+# (csrc/flash_attention_bwd_tf32.cu and
+# csrc/flash_attention_bwd_tf32_256.cu); the bf16 ones 10 pointers (the delta
 # scratch holds the row tiles' statistics), the sizes, hd_pad, the row
 # tiling, masks, scale, stream (csrc/flash_attention_bwd_wgmma.cu and
 # csrc/flash_attention_bwd_wgmma256.cu).
@@ -91,7 +97,7 @@ _ENTRY = {WGMMA: ("repro_flash_attention_wgmma", "15qdqq"),
           BWD_WGMMA: ("repro_flash_attention_bwd_wgmma", "22qdq"),
           BWD_WGMMA256: ("repro_flash_attention_bwd_wgmma256", "22qdq"),
           BWD_TF32X3: ("repro_flash_attention_bwd_tf32", "21qdq"),
-          BWD: ("repro_flash_attention_bwd", "20qdq")}
+          BWD_TF32X3_256: ("repro_flash_attention_bwd_tf32_256", "21qdq")}
 _bound = {}               # kernel -> its C function, bound at its first launch
 
 
@@ -106,7 +112,7 @@ def _bind(kernel: str):
 class Variant:
     """Which kernel takes a call, and its tiles."""
     kernel: str      # WGMMA or TF32X3 (variant); BWD_WGMMA, BWD_WGMMA256,
-                     # BWD_TF32X3 or BWD (bwd_variant)
+                     # BWD_TF32X3 or BWD_TF32X3_256 (bwd_variant)
     hd_pad: int      # head dim as the kernel's shared-memory tiles hold it
     key_tile: int    # keys a tile (the backward's tensor-core kernels: a
                      # dk/dv block)
@@ -153,14 +159,12 @@ def bwd_variant(dtype: torch.dtype, hd: int) -> Variant:
                         registers a thread)
     float32   8 - 128   ``BWD_TF32X3``: hd padded with zeros to 64 or 128,
                         128 keys a dk/dv block
-    float32   136 - 256 ``BWD`` (CUDA cores): the TF32 kernel does not
-                        split hd across warps, and dk and dv of 16 keys a
-                        warp would take 192 - 256 float32 registers a
-                        thread; no float32 tensor-core kernel takes these
-                        head dims yet
+    float32   136 - 256 ``BWD_TF32X3_256``: hd padded with zeros to 192 or
+                        256, 64 keys a dk/dv block, two warps on each 16
+                        keys splitting the head dim (dk and dv of 16 keys
+                        over the whole head dim would take 192 - 256
+                        float32 registers a thread)
     ========  ========  ===================================================
-
-    ``BWD`` pads hd to a multiple of 64 and takes 32 keys a tile.
     """
     if hd % 8 or not 8 <= hd <= 256:
         raise ValueError(f"flash_attention_bwd: head_dim {hd} must be a "
@@ -173,7 +177,7 @@ def bwd_variant(dtype: torch.dtype, hd: int) -> Variant:
     if dtype == torch.float32:
         if hd_pad <= 128:
             return Variant(BWD_TF32X3, hd_pad, 128)
-        return Variant(BWD, hd_pad, 32)
+        return Variant(BWD_TF32X3_256, hd_pad, 64)
     raise ValueError(f"flash_attention_bwd: q, k and v must share float32 "
                      f"or bfloat16, got {dtype}")
 
@@ -319,9 +323,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         sizes = (b, sq, sk, h, kv, hd, plan.hd_pad, rows.hb, rows.tiles)
     else:
         delta = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-        sizes = (b, sq, sk, h, kv, hd, plan.hd_pad)
-        if plan.kernel == BWD_TF32X3:
-            sizes += (0,)   # its dtype: float32
+        sizes = (b, sq, sk, h, kv, hd, plan.hd_pad, 0)   # dtype 0: float32
     ptrs = (q, k, v, o, do, lse, delta, dq, dk, dv)
     _build.check(fn(*(x.data_ptr() for x in ptrs), *sizes, *masks), what)
     flash_attention_bwd.launches += 1
@@ -331,4 +333,4 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_attention_bwd.launches = 0
 flash_attention_bwd.launches_by_kernel = {BWD_WGMMA: 0, BWD_WGMMA256: 0,
-                                          BWD_TF32X3: 0, BWD: 0}
+                                          BWD_TF32X3: 0, BWD_TF32X3_256: 0}

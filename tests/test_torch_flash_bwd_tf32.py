@@ -1,19 +1,25 @@
 """The float32 flash backward's arithmetic, held to the reference's VJP.
 
-``csrc/flash_attention_bwd_tf32.cu`` runs only on the card.  Its arithmetic
-is transcribed here in plain PyTorch (:func:`bwd_tf32x3`): every product
-split into TF32 halves (hi rounded to nearest with ties away from zero, lo
-= x - hi with its low 13 bits dropped, as the mma reads it) and taken as
-hi·hi + (hi·lo + lo·hi); S and dP summed by chunks of 32 columns of hd; the
-dk/dv pass over blocks of 128 keys walking the group's query rows,
-flattened (position, head), in tiles of 16 from the first row that can see
-one of the block's keys, the dq pass over blocks of 128 flattened rows
-walking key tiles of 16; each tile's share of dk, dv and dq summed apart
-and added in float32, in that order; masked probabilities selected to 0
-before the exponential.  The same seeded numpy inputs go through
-``jax.vjp`` of ``repro.models.flash.flash_attention`` (its custom VJP):
-the transcription within 2e-4, and with hi alone (one TF32 product) it
-misses 2e-4 in every case, so the limit tells the split from none.
+``csrc/flash_attention_bwd_tf32.cu`` (up to hd 128) and
+``csrc/flash_attention_bwd_tf32_256.cu`` (hd 136 to 256) run only on the
+card.  Their arithmetic is transcribed here in plain PyTorch
+(:func:`bwd_tf32x3`): every product split into TF32 halves (hi rounded to
+nearest with ties away from zero, lo = x - hi with its low 13 bits
+dropped, as the mma reads it) and taken as hi·hi + (hi·lo + lo·hi); S and
+dP summed by chunks of 32 columns of hd (above hd 128 the first half of
+the chunks and the second summed apart, then added, as the two warps that
+share a block's 16 keys or rows each take half and add their partials);
+the dk/dv pass over blocks of ``res`` keys (128, or 64 above hd 128)
+walking the group's query rows, flattened (position, head), in tiles of 16
+from the first row that can see one of the block's keys, the dq pass over
+blocks of ``res`` flattened rows walking key tiles of 16; each tile's share
+of dk, dv and dq summed apart and added in float32, in that order; masked
+probabilities selected to 0 before the exponential.  (Above hd 128 the two
+warps of a pair also split the tile's product by columns; that changes no
+sum.)  The same seeded numpy inputs go through ``jax.vjp`` of
+``repro.models.flash.flash_attention`` (its custom VJP): the transcription
+within 2e-4, and with hi alone (one TF32 product) it misses 2e-4 in every
+case, so the limit tells the split from none.
 """
 import functools
 
@@ -29,7 +35,7 @@ from repro_torch.models import flash as tflash
 
 TOL = 2e-4
 LOG2E = 1.4426950408889634
-RES, TILE, CHUNK = 128, 16, 32   # resident block, streamed tile, S chunk
+TILE, CHUNK = 16, 32   # streamed tile, S chunk
 
 # (B, Sq, Sk, H, kv, hd, causal, window, q_offset, q scale)
 CASES = [
@@ -39,7 +45,18 @@ CASES = [
     (1, 40, 40, 9, 1, 64, True, 0, 0, 1.0),       # g 9
     (1, 50, 90, 4, 4, 64, False, 0, 0, 1.0),      # g 1, bidirectional, ragged
     (1, 160, 160, 4, 1, 120, True, 0, 0, 4.0),    # q x 4: large scores
+    # above hd 128 (the split-hd kernel: 64-key blocks)
+    (1, 128, 128, 4, 2, 256, True, 0, 0, 1.0),    # gemma3-12b's g 2
+    (1, 64, 64, 4, 2, 192, True, 20, -24, 1.0),   # window; 24 rows see no key
+    (1, 80, 120, 2, 1, 136, True, 0, 40, 1.0),    # hd 136 (pad 192), ragged
+    (1, 96, 96, 2, 1, 256, True, 0, 0, 4.0),      # q x 4: large scores
 ]
+
+
+def layout(hd):
+    """The kernel's resident block and whether S and dP are summed in two
+    halves of the chunks: (128, False) up to hd 128, (64, True) above."""
+    return (128, False) if hd <= 128 else (64, True)
 
 
 @pytest.fixture(autouse=True)
@@ -91,17 +108,28 @@ def product(a, b, terms):
     return ah @ bh + (ah @ bl + al @ bh)
 
 
-def chunked(a, b, terms):
-    """a @ b^T over hd by chunks of 32 columns, each added in float32."""
-    return sum(product(a[..., c:c + CHUNK], b[..., c:c + CHUNK].transpose(
-        -1, -2), terms) for c in range(0, a.shape[-1], CHUNK))
+def chunked(a, b, terms, halves):
+    """a @ b^T over hd by chunks of 32 columns, each added in float32; with
+    ``halves`` the first half of the chunks and the second apart, then the
+    two sums.  hd is padded to a multiple of 64 first, as the kernels pad
+    it (zero columns add exact zeros, but they count in the halves)."""
+    pad = -a.shape[-1] % 64
+    a, b = (torch.nn.functional.pad(x, (0, pad)) for x in (a, b))
+    parts = [product(a[..., c:c + CHUNK], b[..., c:c + CHUNK].transpose(
+        -1, -2), terms) for c in range(0, a.shape[-1], CHUNK)]
+    if not halves:
+        return sum(parts)
+    return sum(parts[:len(parts) // 2]) + sum(parts[len(parts) // 2:])
 
 
-def bwd_tf32x3(q, k, v, o, do, lse, *, causal, window, q_offset, terms=3):
-    """The float32 backward kernel's arithmetic in plain PyTorch:
+def bwd_tf32x3(q, k, v, o, do, lse, *, causal, window, q_offset, res,
+               halves, terms=3):
+    """The float32 backward kernels' arithmetic in plain PyTorch:
     (dq, dk, dv) in float32, tiles, masks and sums as the kernel takes
-    them.  A tile the kernel skips for a warp, or items past the ends,
-    would add exact zeros, so every visible item is taken here."""
+    them: ``res`` resident keys (rows) a block; with ``halves`` S and dP
+    summed in two halves of their chunks.  A tile the kernel skips for a
+    warp, or items past the ends, would add exact zeros, so every visible
+    item is taken here."""
     b, sq, h, hd = q.shape
     sk, kv = k.shape[1], k.shape[2]
     g = h // kv
@@ -136,19 +164,19 @@ def bwd_tf32x3(q, k, v, o, do, lse, *, causal, window, q_offset, terms=3):
                                    float("-inf")))
         return p, p * (dp - delta[..., r, None]) * scale
 
-    # dk / dv: blocks of 128 keys over tiles of 16 flattened rows.
+    # dk / dv: blocks of res keys over tiles of 16 flattened rows.
     dk = torch.zeros(b, kv, sk, hd)
     dv = torch.zeros(b, kv, sk, hd)
-    for k0 in range(0, sk, RES):
-        keys = torch.arange(k0, min(k0 + RES, sk))
+    for k0 in range(0, sk, res):
+        keys = torch.arange(k0, min(k0 + res, sk))
         p_lo = max(0, k0 - q_offset) if causal else 0
         p_end = min(sq, int(keys[-1]) + window - q_offset) if window else sq
         acc_k = torch.zeros(b, kv, len(keys), hd)
         acc_v = torch.zeros(b, kv, len(keys), hd)
         for j0 in range(p_lo * g, p_end * g, TILE):
             r = torch.arange(j0, min(j0 + TILE, rows))
-            st = chunked(kt[:, :, keys], qf[:, :, r], terms)
-            dpt = chunked(vt[:, :, keys], dof[:, :, r], terms)
+            st = chunked(kt[:, :, keys], qf[:, :, r], terms, halves)
+            dpt = chunked(vt[:, :, keys], dof[:, :, r], terms, halves)
             p, ds = p_ds(st.transpose(-1, -2), dpt.transpose(-1, -2), r,
                          visible(r, keys))
             acc_v += product(p.transpose(-1, -2), dof[:, :, r], terms)
@@ -156,17 +184,17 @@ def bwd_tf32x3(q, k, v, o, do, lse, *, causal, window, q_offset, terms=3):
         dk[:, :, keys] = acc_k
         dv[:, :, keys] = acc_v
 
-    # dq: blocks of 128 flattened rows over key tiles of 16.
+    # dq: blocks of res flattened rows over key tiles of 16.
     dq = torch.zeros(b, kv, rows, hd)
-    for r0 in range(0, rows, RES):
-        r = torch.arange(r0, min(r0 + RES, rows))
+    for r0 in range(0, rows, res):
+        r = torch.arange(r0, min(r0 + res, rows))
         k_end = min(sk, int(r[-1]) // g + q_offset + 1) if causal else sk
         k_begin = max(0, r0 // g + q_offset - window + 1) if window else 0
         acc = torch.zeros(b, kv, len(r), hd)
         for j0 in range(k_begin, k_end, TILE):
             keys = torch.arange(j0, min(j0 + TILE, sk))
-            s = chunked(qf[:, :, r], kt[:, :, keys], terms)
-            dp = chunked(dof[:, :, r], vt[:, :, keys], terms)
+            s = chunked(qf[:, :, r], kt[:, :, keys], terms, halves)
+            dp = chunked(dof[:, :, r], vt[:, :, keys], terms, halves)
             _, ds = p_ds(s, dp, r, visible(r, keys))
             acc += product(ds, kt[:, :, keys], terms)
         dq[:, :, r] = acc
@@ -186,7 +214,9 @@ def test_tf32x3_backward_matches_jax_vjp(case):
     q, k, v, do = (torch.from_numpy(a) for a in arrays)
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     o, lse = tflash.attention_lse_ref(q, k, v, **kw)
-    got = bwd_tf32x3(q, k, v, o, do, lse, **kw)
+    res, halves = layout(hd)
+    kw_k = dict(kw, res=res, halves=halves)
+    got = bwd_tf32x3(q, k, v, o, do, lse, **kw_k)
     for name, g_, w_ in zip(("dq", "dk", "dv"), got, want):
         g_ = g_.numpy()
         assert np.isfinite(g_).all(), name
@@ -197,7 +227,7 @@ def test_tf32x3_backward_matches_jax_vjp(case):
     assert not got[0][:, dead].any()
     if q_offset < 0:
         assert dead.any()
-    one = bwd_tf32x3(q, k, v, o, do, lse, terms=1, **kw)
+    one = bwd_tf32x3(q, k, v, o, do, lse, terms=1, **kw_k)
     assert max(np.abs(g_.numpy() - w_).max()
                for g_, w_ in zip(one, want)) > TOL
 

@@ -269,10 +269,10 @@ def test_tiling_differs_from_plain_only_in_sum_order():
 @pytest.mark.parametrize("hd", range(8, 257, 8))
 def test_backward_kernel_table(hd):
     """bf16 up to hd 128 takes the wgmma backward and float32 up to hd 128
-    the TF32 one, hd padded to 64 or 128, 128 keys a dk/dv block; bf16
-    beyond takes the split-hd wgmma backward, hd padded to 192 or 256, 64
-    keys a dk/dv block, and float32 beyond the CUDA cores' backward; the
-    forward's table is its own."""
+    the TF32 one, hd padded to 64 or 128, 128 keys a dk/dv block; beyond,
+    bf16 takes the split-hd wgmma backward and float32 the split-hd TF32
+    one, hd padded to 192 or 256, 64 keys a dk/dv block; the forward's
+    table is its own."""
     wg = tfa.bwd_variant(torch.bfloat16, hd)
     f32 = tfa.bwd_variant(torch.float32, hd)
     pad = -(-hd // 64) * 64
@@ -281,20 +281,29 @@ def test_backward_kernel_table(hd):
         assert f32 == tfa.Variant(tfa.BWD_TF32X3, pad, 128)
     else:
         assert wg == tfa.Variant(tfa.BWD_WGMMA256, pad, 64)
-        assert f32 == tfa.Variant(tfa.BWD, pad, 32)
-    kernels = {tfa.BWD_WGMMA, tfa.BWD_WGMMA256, tfa.BWD_TF32X3, tfa.BWD}
+        assert f32 == tfa.Variant(tfa.BWD_TF32X3_256, pad, 64)
+    kernels = {tfa.BWD_WGMMA, tfa.BWD_WGMMA256, tfa.BWD_TF32X3,
+               tfa.BWD_TF32X3_256}
     assert set(tfa.BWD_KERNELS) == kernels
     assert tfa.flash_attention_bwd.launches_by_kernel.keys() == kernels
+    assert not hasattr(tfa, "BWD")
 
 
-def test_float32_above_hd_128_takes_the_cuda_cores():
-    """No float32 tensor-core backward takes hd 136 - 256 yet: every such
-    head dim, gemma3-12b's 256 among them, stays on ``BWD``, while bf16 at
-    the same head dims leaves it."""
+def test_float32_above_hd_128_takes_the_split_hd_tf32_kernel():
+    """Every float32 head dim from 136 to 256, gemma3-12b's 256 among them,
+    takes ``BWD_TF32X3_256`` (its own source and C entry point), as bf16 at
+    the same head dims takes ``BWD_WGMMA256``; no table entry names the
+    CUDA cores' backward, whose source is gone."""
     for hd in range(136, 257, 8):
-        assert tfa.bwd_variant(torch.float32, hd).kernel == tfa.BWD
+        assert tfa.bwd_variant(torch.float32, hd).kernel == tfa.BWD_TF32X3_256
         assert tfa.bwd_variant(torch.bfloat16, hd).kernel == tfa.BWD_WGMMA256
     assert tfa.bwd_variant(torch.float32, 128).kernel == tfa.BWD_TF32X3
+    assert tfa._SOURCE[tfa.BWD_TF32X3_256] == "flash_attention_bwd_tf32_256"
+    assert tfa._ENTRY[tfa.BWD_TF32X3_256] == (
+        "repro_flash_attention_bwd_tf32_256", "21qdq")
+    sources = set(tfa._build.sources())
+    assert set(tfa._SOURCE.values()) <= sources
+    assert "flash_attention_bwd" not in sources
 
 
 def test_backward_kernel_table_refuses():

@@ -823,7 +823,7 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kv, hd,
     """dq, dk and dv within 2e-4 (float32) or 2e-2 of the largest (bf16)
     of the plain version, one launch a call of the kernel the (dtype, hd)
     table names (bf16: the wgmma kernel up to hd 128 and the split-hd one
-    above; float32: the TF32 one up to hd 128 and the CUDA cores' above),
+    above; float32: the TF32 one up to hd 128 and the split-hd one above),
     bit-identical between calls (no atomics), zero for rows that see no
     key."""
     gen = torch.Generator(device=cuda)
@@ -836,7 +836,8 @@ def test_flash_bwd_kernel_matches_plain(cuda, dtype, b, sq, sk, h, kv, hd,
     assert (kernel == fa.BWD_WGMMA256) == (dtype == torch.bfloat16
                                            and hd > 128)
     assert (kernel == fa.BWD_TF32X3) == (dtype == torch.float32 and hd <= 128)
-    assert (kernel == fa.BWD) == (dtype == torch.float32 and hd > 128)
+    assert (kernel == fa.BWD_TF32X3_256) == (dtype == torch.float32
+                                             and hd > 128)
     before = fa.flash_attention_bwd.launches
     by_kernel = fa.flash_attention_bwd.launches_by_kernel[kernel]
     got = fa.flash_attention_bwd(q, k, v, o, do, lse, **kw)

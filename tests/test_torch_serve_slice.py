@@ -260,8 +260,9 @@ def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     monkeypatch.setattr(_build, "_loaded", {})
     assert _build.sources() == ["bridge_attention", "bridge_gather",
-                               "flash_attention", "flash_attention_bwd",
+                               "flash_attention",
                                "flash_attention_bwd_tf32",
+                               "flash_attention_bwd_tf32_256",
                                "flash_attention_bwd_wgmma",
                                "flash_attention_bwd_wgmma256",
                                "flash_attention_wgmma", "paged_attention",
