@@ -85,8 +85,14 @@ prints no result):
               under each of the route-program constructors back to back,
               bit-exact against the plain path on a CPU copy, their
               counters (a tenant lane) equal to the host oracle, with no
-              nvcc run; then one 8-node pull and push, counters off and on,
-              under ``torch.cuda.set_sync_debug_mode("error")``;
+              nvcc run; each also through the unfused engine
+              (``fused=False``, which ignores the channels: the
+              reference's pipelined and bufferless engines run it too),
+              bit-exact against the fused engine's pages and the plain
+              path, counters equal to the oracle, none of the four bridge
+              kernels launched; then one 8-node pull and push, counters
+              off and on, and one unfused pull and push, under
+              ``torch.cuda.set_sync_debug_mode("error")``;
 8. control  — the software control plane's closed loop: first
               ``examples/quickstart_torch.py`` at its own size (bit-exact
               to ``pull_pages_ref`` before and after a node fails); then a
@@ -117,7 +123,7 @@ prints no result):
               requests a step a tenant, under ``local`` and ``bridge_pull``
               on 8 memory nodes.  Every request retires or is shed with a
               reason, both tenants retire, every leased page comes back;
-              four retired requests of 48 tokens or more (3 pages: each
+              two retired requests of 48 tokens or more (3 pages: each
               pulls flushed pages for 16 steps or more), both tenants and a
               slot that an earlier request had left among them, decoded
               alone in their slot of a fresh engine give the same tokens
@@ -190,7 +196,21 @@ prints no result):
               checkpoint, node 2 failed, ``rehome_after_failure`` from the
               checkpoint image, pulls bit-identical to it, no page on node
               2, one gather a pull and one scatter a push;
-12. report  — one JSON line listing every ported kernel with its launches on
+12. engines — the unfused engine through the serve path: granite-3-8b at
+              full width on its first 10 layers (bf16, weights from seed
+              0), batch 8, max_len 64, page_tokens 16, budget 8, 8 memory
+              nodes, a 24-token random prompt then 8 greedy steps (page 0
+              of every sequence flushed and pulled for 16 steps):
+              ``bridge_pull`` and ``bridge_push`` through ``make_cache_ops``
+              under the fused engine, the unfused one (``fused=False``)
+              and the bufferless bridge (``edge_buffer=False``: the fold
+              over unfused transfers), logits within 5e-2
+              of the largest against ``local`` on the same layers and
+              tokens and against the fused engine's; the unfused runs
+              launch no kernel, the bufferless pull only the fold; a pull
+              that loses a page under ``fused=False`` must break the limit;
+              ms a decode step per engine, with the card;
+13. report  — one JSON line listing every ported kernel with its launches on
               the paths that ran it, the card's name and power limit, then
               the result line.
 
@@ -1201,17 +1221,19 @@ def check_stream_passes(report: dict, gen, dev="cuda"):
 
 def decode(cfg, params, kv, batch, max_len, page_tokens, steps, feed, *,
            num_nodes=1, program=None, table=None, dtype=torch.bfloat16,
-           dev="cuda", **telemetry):
+           dev="cuda", engine=None, **telemetry):
     """Decode ``steps`` steps: fed the input tokens ``feed`` [n, B] for the
     first n steps, greedy after; ``program`` and ``table`` replace the
-    route program and the memport table in the shared state;
-    ``telemetry`` (``collect_telemetry``, ``tenant_of_seq``,
-    ``max_tenants``, ``topology``) goes to ``make_cache_ops``.  Returns
-    (inputs, logits, per-step ms, a callable that runs one more step, the
-    decode state after ``steps`` steps)."""
+    route program and the memport table in the shared state; ``engine``
+    (``fused``, ``edge_buffer``, ``channels``; default the fused engine at
+    channels 1) goes to ``run.bridge``; ``telemetry``
+    (``collect_telemetry``, ``tenant_of_seq``, ``max_tenants``,
+    ``topology``) goes to ``make_cache_ops``.  Returns (inputs, logits,
+    per-step ms, a callable that runs one more step, the decode state after
+    ``steps`` steps)."""
     run = RunConfig(model=cfg, shape=ShapeConfig("smoke", max_len, batch,
                                                  "decode"), kv_placement=kv,
-                    bridge=BridgeConfig(channels=1))
+                    bridge=BridgeConfig(**(engine or {})))
     ops = serve_step.make_cache_ops(run, max_len, page_tokens,
                                     num_nodes=num_nodes, dtype=dtype,
                                     device=dev, **telemetry)
@@ -2122,12 +2144,31 @@ def hold_transfer_counters(label: str, got, want) -> None:
             raise AssertionError(f"{label}: {f.name} differs from the oracle")
 
 
+BRIDGE_KERNELS = ("gather_pages", "pull_commit", "push_commit",
+                  "scatter_pages")
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-identical bf16 tensors (a -0.0 against +0.0 differs)."""
+    return torch.equal(a.view(torch.int16), b.view(torch.int16))
+
+
+def hold_no_bridge_launch(label: str, counts: dict) -> None:
+    """None of the four bridge kernels launched in ``counts``."""
+    if any(counts[name] for name in BRIDGE_KERNELS):
+        raise AssertionError(f"{label} launched bridge kernels: "
+                             f"{ {k: counts[k] for k in BRIDGE_KERNELS} }")
+
+
 def programs_swap(dev="cuda") -> dict:
     """Pull and push under every program back to back on one card pool,
     bit-exact against the plain path on a CPU copy, with the counters on
     (a tenant lane, the hierarchical program's fabric) and held to the host
-    oracle, building nothing; then one round trip under the sync debugger,
-    counters off and on."""
+    oracle, building nothing; each also through the unfused engine,
+    bit-exact against the fused engine and the plain path, its counters
+    held to the oracle, launching no bridge kernel; then one round trip
+    under the sync debugger, counters off and on, and one unfused pull and
+    push."""
     gen = torch.Generator(device="cpu")
     gen.manual_seed(5)
     ppn, page = 16, (16, 8, 128)
@@ -2151,6 +2192,7 @@ def programs_swap(dev="cuda") -> dict:
     runs_before = _build.nvcc_runs
     kw = dict(num_nodes=NODES, budget=8, channels=2)
     tel = dict(collect_telemetry=True, max_tenants=3)
+    t_engines = 0.0
     for name, prog in variants.items():
         prog_c = prog.to("cpu")
         topology = topo if name == "hierarchical" else None
@@ -2164,12 +2206,16 @@ def programs_swap(dev="cuda") -> dict:
             if not torch.equal(got.cpu(), want):
                 raise AssertionError(f"8-node pull under {name} disagrees "
                                      f"with the plain path")
-            hold_transfer_counters(
-                f"8-node pull under {name}", got_t, tref.
-                expected_transfer_telemetry(
-                    want_c, table_c, prog_c, num_nodes=NODES, budget=8,
-                    active_budget=ab_cpu, topology=topology,
-                    tenant_ids=ten_c, max_tenants=3))
+            pull_oracle = tref.expected_transfer_telemetry(
+                want_c, table_c, prog_c, num_nodes=NODES, budget=8,
+                active_budget=ab_cpu, topology=topology, tenant_ids=ten_c,
+                max_tenants=3)
+            hold_transfer_counters(f"8-node pull under {name}", got_t,
+                                   pull_oracle)
+            push_oracle = tref.expected_transfer_telemetry(
+                dest_c, table_c, prog_c, num_nodes=NODES, budget=8,
+                active_budget=ab_cpu, topology=topology, max_tenants=3)
+            before = pool_g.clone()
             _, got_t = bridge.push_pages(
                 pool_g, dest_g, pay_g, table_g, program=prog,
                 active_budget=ab_dev, topology=topology, **kw, **tel)
@@ -2178,19 +2224,49 @@ def programs_swap(dev="cuda") -> dict:
             if not torch.equal(pool_g.cpu(), pool_c):
                 raise AssertionError(f"8-node push under {name} disagrees "
                                      f"with the plain path")
-            hold_transfer_counters(
-                f"8-node push under {name}", got_t, tref.
-                expected_transfer_telemetry(
-                    dest_c, table_c, prog_c, num_nodes=NODES, budget=8,
-                    active_budget=ab_cpu, topology=topology, max_tenants=3))
+            hold_transfer_counters(f"8-node push under {name}", got_t,
+                                   push_oracle)
+            # the unfused engine on the same pool and requests
+            t_sub = time.perf_counter()
+            reset_launches()
+            label = f"8-node unfused under {name}"
+            e_got, e_t = bridge.pull_pages(
+                before, want_g, table_g, program=prog, active_budget=ab_dev,
+                topology=topology, tenant_ids=ten_g, fused=False, **kw,
+                **tel)
+            if not (same_bits(e_got, got) and torch.equal(e_got.cpu(), want)):
+                raise AssertionError(f"{label}: pull disagrees with the "
+                                     f"fused engine or the plain path")
+            hold_transfer_counters(f"{label} pull", e_t, pull_oracle)
+            _, e_t = bridge.push_pages(
+                before, dest_g, pay_g, table_g, program=prog,
+                active_budget=ab_dev, topology=topology, fused=False, **kw,
+                **tel)
+            if not (same_bits(before, pool_g)
+                    and torch.equal(before.cpu(), pool_c)):
+                raise AssertionError(f"{label}: push disagrees with the "
+                                     f"fused engine or the plain path")
+            hold_transfer_counters(f"{label} push", e_t, push_oracle)
+            hold_no_bridge_launch(label, read_launches())
+            t_engines += time.perf_counter() - t_sub
+            del before
     if _build.nvcc_runs != runs_before:
         raise AssertionError("swapping route programs ran nvcc")
     prog = variants["hierarchical"]
     torch.cuda.synchronize()
+    reset_launches()
     torch.cuda.set_sync_debug_mode("error")
     try:
         pulled = bridge.pull_pages(pool_g, want_g, table_g, program=prog,
                                    active_budget=ab_g, **kw)
+        fused_counts = read_launches()
+        # one unfused pull and push, on the pool the fused pull read
+        reset_launches()
+        unfused = bridge.pull_pages(pool_g, want_g, table_g, program=prog,
+                                    active_budget=ab_g, fused=False, **kw)
+        bridge.push_pages(pool_g, dest_g, pay_g, table_g, program=prog,
+                          active_budget=ab_g, fused=False, **kw)
+        unfused_counts = read_launches()
         bridge.push_pages(pool_g, dest_g, pay_g, table_g, program=prog,
                           active_budget=ab_g, **kw)
         # and with the counters on, a tenant lane and the program's fabric
@@ -2203,8 +2279,16 @@ def programs_swap(dev="cuda") -> dict:
     finally:
         torch.cuda.set_sync_debug_mode("default")
     torch.cuda.synchronize()
+    hold_no_bridge_launch("the unfused engine under the sync debugger",
+                          unfused_counts)
+    if not (fused_counts["gather_pages"] and fused_counts["pull_commit"]):
+        raise AssertionError(f"the fused pull under the sync debugger "
+                             f"launched {fused_counts}")
     if not torch.isfinite(pulled.float()).all():
         raise AssertionError("sync-debug round trip pulled non-finite pages")
+    if not same_bits(unfused, pulled):
+        raise AssertionError("sync-debug unfused pull disagrees with the "
+                             "fused engine's")
     prog_c = prog.to("cpu")
     hold_transfer_counters("sync-debug pull", pull_t,
                            tref.expected_transfer_telemetry(
@@ -2219,7 +2303,12 @@ def programs_swap(dev="cuda") -> dict:
     out = dict(programs=list(variants), nvcc_runs_during_swaps=0,
                sync_debug_round_trip="ok",
                counters_equal_oracle="every program, throttled and not, "
-                                     "and under the sync debugger")
+                                     "every engine, and under the sync "
+                                     "debugger",
+               unfused_engine_bit_exact="fused engine and plain path, "
+                                        "every program, throttled and not",
+               unfused_bridge_kernel_launches=0,
+               unfused_engine_s=t_engines)
     print("programs:", json.dumps(out))
     return out
 
@@ -2509,13 +2598,13 @@ def control_phase(report: dict, card: str, dev="cuda") -> dict:
 # two tenants (chat, interactive, share 3; crawl, batch, share 1), 8 slots,
 # max_len 256, page_tokens 16, the QoS policy: 12 arrival steps at 0.5
 # requests a step a tenant give 13 requests (8 chat, 5 crawl) and 133
-# decode steps.  Four retired requests are decoded again alone: those of
+# decode steps.  Two retired requests are decoded again alone: those of
 # the fewest tokens among the requests of at least 3 pages' tokens (each
 # flushes 2 pages or more and pulls them for 16 steps or more), both
 # tenants among them and one in a slot that an earlier request had left
-# (with this stream 52 + 68 + 70 + 115 tokens, 301 solo steps)
+# (cut from four, 301 solo steps, so that the engines phase fits)
 SERVE = dict(batch=8, max_len=256, page_tokens=16, steps=12, rate=0.5,
-             seed=0, solo=4, solo_min_pages=3, min_retired=12)
+             seed=0, solo=2, solo_min_pages=3, min_retired=12)
 SERVE_PATHS = {"local": ("local", 1), f"{NODES}-node pull": ("bridge_pull",
                                                             NODES)}
 
@@ -2706,6 +2795,132 @@ def serve_phase(report: dict, cfg, params, dev="cuda") -> dict:
         torch.cuda.empty_cache()
     out["seconds"] = time.perf_counter() - t0
     print(f"serve phase: {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Phase 12: the unfused engine through the serve path
+# ---------------------------------------------------------------------------
+
+# granite-3-8b at full width on its first ``SHALLOW`` layers: a 24-token
+# prompt, then 8 greedy steps; page 0 of every sequence is flushed when its
+# 16th token is in and pulled in steps 17-32.  max_len 64: one round of 4
+# lanes a node.  The fault runs stop after step 18.
+ENGINE_RUN = dict(batch=8, max_len=64, page_tokens=16, prompt=24, steps=32,
+                  fault_steps=18)
+# the serve-path engines: run.bridge knobs
+SERVE_ENGINES = {"fused": {}, "unfused": dict(fused=False),
+                 "bufferless": dict(edge_buffer=False)}
+
+
+@contextlib.contextmanager
+def planted_unfused_fault(budget: int = 8):
+    """Drop the last live lane of every round of an unfused pull (node-major
+    over the round's ``budget`` lanes a node, as :func:`planted_fault`
+    drops it from a fused round): a bridge that loses a page."""
+    real = bridge.pull_pages
+
+    def lossy(pool, want, table, **kw):
+        n, r = want.shape
+        rounds = -(-r // budget)
+        pad = want.new_full((n, rounds * budget - r), FREE)
+        by_round = torch.cat([want, pad], 1).view(n, rounds, budget)
+        flat = by_round.transpose(0, 1).reshape(rounds, n * budget)
+        lane = torch.arange(n * budget, device=want.device)
+        last = torch.where(flat >= 0, lane, -1).amax(1, keepdim=True)
+        flat = torch.where(lane == last, FREE, flat)
+        want = flat.view(rounds, n, budget).transpose(0, 1).reshape(
+            n, rounds * budget)[:, :r]
+        return real(pool, want, table, **kw)
+
+    bridge.pull_pages = lossy
+    try:
+        yield
+    finally:
+        bridge.pull_pages = real
+
+
+def engines_phase(report: dict, cfg, params, card: str, dev="cuda") -> dict:
+    """Phase 12: bridge_pull and bridge_push on 8 nodes through
+    ``make_cache_ops`` under the fused and unfused engines and the
+    bufferless bridge at full width on ``SHALLOW`` layers: logits held to local's and
+    the fused engine's, the launches to the shapes (none but the
+    bufferless pull's folds off the fused engine), a planted lost page
+    under ``fused=False`` rejected, and ms a decode step per engine."""
+    t0 = time.perf_counter()
+    cfg_s, params_s = shallow(cfg, params)
+    batch, max_len, page_tokens, steps = (ENGINE_RUN[k] for k in (
+        "batch", "max_len", "page_tokens", "steps"))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(12)
+    prompt = torch.randint(0, cfg.vocab_size, (ENGINE_RUN["prompt"], batch),
+                           generator=gen, device=dev, dtype=torch.int32)
+    shape = (batch, max_len, page_tokens)
+    inputs, local_logits, local_ms, _, _ = decode(cfg_s, params_s, "local",
+                                                  *shape, steps, prompt,
+                                                  dev=dev)
+    out = dict(layers=cfg_s.num_layers, local_ms_per_step=statistics.median(
+        local_ms[1:]))
+    max_pages = -(-max_len // page_tokens)
+    for kv in ("bridge_pull", "bridge_push"):
+        mode = kv.split("_")[1]
+        fused = expected_launches(NODES, batch, max_pages, 8,
+                                  cfg_s.num_layers, mode)
+        logits = {}
+        for ename, knobs in SERVE_ENGINES.items():
+            if ename == "fused":
+                want = fused
+            else:
+                # the unfused engine launches no kernel; a bufferless pull
+                # still folds its rounds (``fused`` stays True there)
+                want = dict.fromkeys(KERNELS, 0)
+                if "fused" not in knobs and mode == "pull":
+                    want["stream_decode_accumulate"] = fused[
+                        "stream_decode_accumulate"]
+            sync(dev)
+            reset_launches()
+            _, got, ms, _, _ = decode(cfg_s, params_s, kv, *shape, steps,
+                                      inputs, num_nodes=NODES, engine=knobs,
+                                      dev=dev)
+            hold_launches(report, f"engines {ename} {mode}", read_launches(),
+                          want, steps)
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"non-finite {ename} {kv} logits")
+            logits[ename] = got
+            entry = dict(ms_per_step=statistics.median(ms[1:]),
+                         first_step_ms=ms[0],
+                         worst_logit_rel_diff_vs_local=worst_rel_diff(
+                             got, local_logits),
+                         worst_logit_rel_diff_vs_fused=worst_rel_diff(
+                             got, logits["fused"]),
+                         greedy_agreement_vs_fused=float(
+                             (got.argmax(-1) == logits["fused"].argmax(-1))
+                             .float().mean()))
+            for ref_name in ("local", "fused"):
+                worst = entry[f"worst_logit_rel_diff_vs_{ref_name}"]
+                if worst > FULL_LOGIT_REL_TOL:
+                    raise AssertionError(
+                        f"{ename} {kv} logits differ from {ref_name}'s by "
+                        f"{worst:.3g} of the largest logit")
+            out[f"{ename} {mode}"] = entry
+        del logits
+    fault_steps = ENGINE_RUN["fault_steps"]
+    with planted_unfused_fault():
+        _, fault_logits, _, _, _ = decode(
+            cfg_s, params_s, "bridge_pull", *shape, fault_steps, inputs,
+            num_nodes=NODES, engine=SERVE_ENGINES["unfused"], dev=dev)
+    fault = worst_rel_diff(fault_logits, local_logits[:fault_steps])
+    if not fault > FULL_LOGIT_REL_TOL:
+        raise AssertionError(f"a lost page under fused=False moved the "
+                             f"logits by only {fault:.3g} of the largest")
+    out.update(planted_lost_page_rel_diff=fault,
+               seconds=time.perf_counter() - t0)
+    print(f"engines ({card}):", json.dumps(out))
+    print(f"engines ms a decode step ({card}, {cfg_s.num_layers} layers, "
+          f"{NODES} nodes): " + ", ".join(
+              f"{k} {v['ms_per_step']:.2f}" for k, v in out.items()
+              if isinstance(v, dict)))
+    print(f"engines phase: {out['seconds']:.1f} s")
     return out
 
 
@@ -3641,6 +3856,7 @@ def main() -> int:
     forward_phase(report, cfg, params)
     print(f"forward phase: {time.perf_counter() - t_phase:.1f} s")
     serve_phase(report, cfg, params)
+    engines_phase(report, cfg, params, card)
     del params
     torch.cuda.empty_cache()
     t_phase = time.perf_counter()

@@ -207,7 +207,8 @@ class BridgeConfig:
                                       # round chunks, bit-exact results)
     fused: bool = True                # fused datapath: one kernel pair per
                                       # round (False = the unfused engine,
-                                      # not ported: make_cache_ops raises)
+                                      # which launches no kernel and
+                                      # ignores channels)
     mem_axis: str = "data"            # mesh axis hosting the memory pool
     # modelled hardware (perfmodel): the paper prototype's values; the
     # card's projection is perfmodel.DEVICE_HW

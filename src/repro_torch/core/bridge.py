@@ -1,14 +1,16 @@
-"""The bridge transfer engine: the loopback path and the fused N-node engine.
+"""The bridge transfer engine: the loopback path, the fused N-node engine and
+the unfused serial engine.
 
-Ports ``repro.core.bridge.pull_pages`` / ``push_pages`` with the fused
-datapath.  Requests pad to whole rounds of ``budget`` pages with FREE; the
-runtime rate limiter ``active_budget`` spills what lies past
-``rounds * active_budget``; each request is translated through the
-:class:`~repro_torch.core.memport.MemPortTable` to its home node and slot.
+Ports ``repro.core.bridge.pull_pages`` / ``push_pages``.  Requests pad to
+whole rounds of ``budget`` pages with FREE; the runtime rate limiter
+``active_budget`` spills what lies past ``rounds * active_budget``; each
+request is translated through the :class:`~repro_torch.core.memport.
+MemPortTable` to its home node and slot.
 
 * ``num_nodes == 1`` (loopback): the page moves through one
   :func:`~repro_torch.kernels.bridge_gather.gather_pages` or
-  :func:`~repro_torch.kernels.bridge_gather.scatter_pages` launch at the
+  :func:`~repro_torch.kernels.bridge_gather.scatter_pages` launch (with
+  ``fused=False``, one masked gather or scatter of tensor ops) at the
   flat pool row ``home * pages_per_node + slot``.  The pool may still model
   ``table_nodes`` logical memory nodes, node-major
   (``pages_per_node = pool rows // table_nodes``): request row i is logical
@@ -30,6 +32,22 @@ runtime rate limiter ``active_budget`` spills what lies past
   :func:`~repro_torch.kernels.bridge_gather.push_commit` reads in place.
   The Python loop runs over rounds, never over nodes.
 
+``fused=False`` runs the reference's serial unfused engine instead, as
+plain tensor ops with no kernel: per round an epoch-0 loopback gather,
+then for each circuit slot one request "ppermute" (a roll of the requests
+along the node axis by the slot's distance), one masked gather at the
+homes and one data "ppermute" back, for all N nodes at once.  It ignores
+``channels``: the reference's pipelined engine (``channels > 1``) overlaps
+chunk g+1's request flits with chunk g's data flits across devices, and on
+one stream that would only reorder independent tensor ops, with the same
+pages and commit order.  The reference's bufferless bridge
+(``edge_buffer=False``) also runs its serial engine; the port has no such
+argument here: callers that carry it (:mod:`repro_torch.core.kvbridge`)
+pass ``fused=False`` for a bufferless transfer.  On the loopback path
+``fused=False`` moves the pages by the same masked gather and scatter in
+place of the kernels.  Both engines serve the same pages and commit in the
+same order, so pages and counters are bit-exact across them.
+
 ``channels`` splits each round's ``budget`` lanes into virtual channels of
 ``ceil(budget / channels)`` lanes: what is served never changes, the push
 commit order follows the reference's grid.  ``overprovision`` multiplies
@@ -41,9 +59,8 @@ any of them between calls builds and synchronises nothing.
 ``collect_telemetry`` also returns the transfer's in-band counters
 (:mod:`repro_torch.telemetry.counters`), computed from the same request
 lists with tensor ops for all requester rows at once; they launch none of
-the port's kernels.  The unfused, pipelined and bufferless engines and the
-"ladder" exchange lowering are not ported (the port runs the fused "a2a"
-engine).
+the port's kernels.  The fused engine's "ladder" exchange lowering is not
+ported (the port's fused engine runs the "a2a" lowering).
 """
 from __future__ import annotations
 
@@ -275,6 +292,138 @@ def _push_nodes(pool: torch.Tensor, dest: torch.Tensor, payload: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# The unfused engine on a node axis of one device (no kernel)
+# ---------------------------------------------------------------------------
+#
+# The reference's ``ppermute(perm=[(j, j + d)])`` lands node ``i - d``'s row
+# at node ``i``: on the node axis that is ``torch.roll(x, d, 0)``, and the
+# data flits' way back ``torch.roll(x, -d, 0)``.  Each slot of a round is
+# one such step for all N nodes; the Python loops run over rounds and
+# slots, never over nodes.  One stream runs the steps in program order, so
+# the reference's pipelined schedule (``channels > 1``) would only reorder
+# independent tensor ops, and its bufferless ``optimization_barrier`` has
+# nothing to order: the serial engine stands for all three.
+
+def _page_mask(mask: torch.Tensor, pages: torch.Tensor) -> torch.Tensor:
+    """``mask`` [...] broadcast over the page dims of ``pages``."""
+    return mask.view(tuple(mask.shape) + (1,) * (pages.dim() - mask.dim()))
+
+
+def _gather_local(pool: torch.Tensor, slots: torch.Tensor, ppn: int,
+                  node=0) -> torch.Tensor:
+    """Masked local gather: node ``node``'s pool row ``slot`` per lane
+    (``node`` broadcasts against ``slots``); FREE gathers zeros, a slot past
+    the node's pages reads its last row, as JAX's clamped gather does."""
+    rows = node * ppn + slots.clamp(0, ppn - 1)
+    out = pool.index_select(0, rows.reshape(-1)).view(
+        tuple(slots.shape) + tuple(pool.shape[1:]))
+    return out.masked_fill(~_page_mask(slots >= 0, out), 0)
+
+
+def _scatter_local(pool: torch.Tensor, slots: torch.Tensor,
+                   data: torch.Tensor, ppn: int, node=0) -> None:
+    """``pool.at[node * ppn + slots].set(data, mode="drop")`` in place: a
+    FREE slot or one past the node's pages drops (it must not land in the
+    next node's rows); among lanes that write one row the later lane wins.
+
+    Dropped and shadowed lanes still take part in the one indexed copy,
+    each rewriting a row with the bytes that row ends up holding (the first
+    kept lane's, or row 0's own when no lane is kept), so no write races
+    and nothing is read back to the host."""
+    if slots.numel() == 0:
+        return
+    page = tuple(pool.shape[1:])
+    live = (slots >= 0) & (slots < ppn)
+    rows = torch.where(live, node * ppn + slots, -1).reshape(-1).long()
+    data = data.reshape((-1,) + page)
+    w, n_rows = rows.shape[0], pool.shape[0]
+    pos = torch.arange(w, device=rows.device)
+    dump = torch.where(rows >= 0, rows, n_rows)
+    last = torch.full((n_rows + 1,), -1, dtype=torch.long, device=rows.device)
+    last.scatter_reduce_(0, dump, pos, reduce="amax")
+    keep = (rows >= 0) & (last.index_select(0, dump) == pos)
+    first = keep.to(torch.int32).argmax().view(1)
+    some = keep.any().view(1)
+    fill_row = torch.where(some, rows.index_select(0, first), 0)
+    src = torch.cat([data, pool[:1]])
+    fill_src = torch.where(some, first, w)
+    pool.index_copy_(0, torch.where(keep, rows, fill_row),
+                     src.index_select(0, torch.where(keep, pos, fill_src)))
+
+
+def _slot_serve(dist: torch.Tensor, program: RouteProgram, k: int,
+                d: int) -> torch.Tensor:
+    """Slot k carries requester j's lane (row j of ``dist`` [N, L]) iff the
+    lane lies at the slot's distance ``d`` and the program wires the slot
+    for j."""
+    return ((dist == d) & program.live[k]
+            & (program.rank_epoch[k] >= 0)[:, None])
+
+
+def _data_window(payload: torch.Tensor, rnd: int, ab: torch.Tensor,
+                 lanes: int) -> torch.Tensor:
+    """Round ``rnd``'s payload windows [N, lanes, *page]: node j's lane k
+    carries ``payload[j, rnd * ab[j] + k]`` (its last page past the list;
+    such lanes carry FREE in the request window and drop)."""
+    n, length = payload.shape[:2]
+    lane = torch.arange(lanes, device=payload.device)[None, :]
+    idx = (rnd * ab[:, None] + lane).clamp(max=length - 1)
+    node = torch.arange(n, device=payload.device)[:, None]
+    return payload[node, idx]
+
+
+def _round_pull(pool: torch.Tensor, window: torch.Tensor, table: MemPortTable,
+                program: RouteProgram, me: torch.Tensor, num_nodes: int,
+                ppn: int) -> torch.Tensor:
+    """Serve one round's windows [N, L] -> [N, L, *page] (the reference's
+    ``_round_pull``): the epoch-0 loopback, then slot after slot."""
+    home, slot = table.translate(window)
+    dist = steering.ring_distance(home, me, num_nodes)
+    out = _gather_local(pool, torch.where(dist == 0, slot, FREE), ppn, me)
+    for k, d in enumerate(steering.default_route_schedule(num_nodes)):
+        serve = _slot_serve(dist, program, k, d)
+        req_at_home = torch.roll(torch.where(serve, slot, FREE), d, 0)
+        payload = torch.roll(_gather_local(pool, req_at_home, ppn, me), -d, 0)
+        out = torch.where(_page_mask(serve, payload), payload, out)
+    return out
+
+
+def _pull_unfused(pool: torch.Tensor, want: torch.Tensor, table: MemPortTable,
+                  ab: torch.Tensor, program: RouteProgram, *, num_nodes: int,
+                  budget: int, rounds: int) -> torch.Tensor:
+    """The serial engine: :func:`_round_pull` a round."""
+    ppn = pool.shape[0] // num_nodes
+    me = torch.arange(num_nodes, device=pool.device)[:, None]
+    chunks = torch.stack([
+        _round_pull(pool, _fused_window(want, rnd, ab, budget), table,
+                    program, me, num_nodes, ppn)
+        for rnd in range(rounds)])
+    return _reassemble(chunks, want.shape[-1], ab)
+
+
+def _push_unfused(pool: torch.Tensor, dest: torch.Tensor,
+                  payload: torch.Tensor, table: MemPortTable,
+                  ab: torch.Tensor, program: RouteProgram, *, num_nodes: int,
+                  budget: int, rounds: int) -> None:
+    """The serial engine (the reference's serial ``_push_local`` body): per
+    round the epoch-0 loopback writes, then slot after slot, each slot's
+    flits leaving after the previous slot's commit."""
+    ppn = pool.shape[0] // num_nodes
+    me = torch.arange(num_nodes, device=pool.device)[:, None]
+    for rnd in range(rounds):
+        home, slot = table.translate(_fused_window(dest, rnd, ab, budget))
+        data = _data_window(payload, rnd, ab, budget)
+        dist = steering.ring_distance(home, me, num_nodes)
+        _scatter_local(pool, torch.where(dist == 0, slot, FREE), data, ppn,
+                       me)
+        for k, d in enumerate(steering.default_route_schedule(num_nodes)):
+            serve = _slot_serve(dist, program, k, d)
+            _scatter_local(pool,
+                           torch.roll(torch.where(serve, slot, FREE), d, 0),
+                           torch.roll(data, d, 0), ppn, me)
+
+
+# ---------------------------------------------------------------------------
 # Public API
 # ---------------------------------------------------------------------------
 
@@ -362,7 +511,7 @@ def pull_pages(pool_pages: torch.Tensor, want: torch.Tensor,
                table_nodes: int = 0, collect_telemetry: bool = False,
                topology: Optional[Topology] = None,
                tenant_ids: Optional[torch.Tensor] = None,
-               max_tenants: int = 0):
+               max_tenants: int = 0, fused: bool = True):
     """Pull logical pages through the bridge.
 
     Args:
@@ -373,7 +522,8 @@ def pull_pages(pool_pages: torch.Tensor, want: torch.Tensor,
       num_nodes: size of the memory axis (1 = the loopback path).
       budget: pages per round (static).
       channels: virtual channels per round (static, >= 1); what is served
-        does not depend on it.  Ignored on the loopback path.
+        does not depend on it.  Ignored on the loopback path and by the
+        unfused engine.
       overprovision: round-count multiplier (static, >= 1).
       active_budget: runtime rate limiter (int, or a device tensor of one
         value or one per node), clipped to ``[0, budget]``; None serves
@@ -397,6 +547,12 @@ def pull_pages(pool_pages: torch.Tensor, want: torch.Tensor,
         counters (None = all tenant 0); ignored without
         ``collect_telemetry``.
       max_tenants: static width of the tenant histograms (0 = the default).
+      fused: run the fused engine (the default: its kernels, one gather and
+        one commit a round) or, with False, the serial unfused engine,
+        which launches no kernel (the reference's unfused, pipelined and
+        bufferless engines all land here).  Pages and counters are
+        bit-exact either way.  On the loopback path False replaces the
+        gather kernel by a masked gather of tensor ops.
     Returns:
       [num_nodes, R, *page_shape] gathered pages (zeros for FREE, spilled,
       unwired and unmapped requests), or ``(pages, telemetry)`` when
@@ -412,10 +568,14 @@ def pull_pages(pool_pages: torch.Tensor, want: torch.Tensor,
         ab = _budget_vec(active_budget, num_nodes, budget, pool_pages.device)
         if rounds == 0:
             out = pool_pages.new_zeros((num_nodes, r) + pool_pages.shape[1:])
-        else:
+        elif fused:
             out = _pull_nodes(pool_pages, want, table, ab, program,
                               num_nodes=num_nodes, budget=budget,
                               channels=channels, rounds=rounds)
+        else:
+            out = _pull_unfused(pool_pages, want, table, ab, program,
+                                num_nodes=num_nodes, budget=budget,
+                                rounds=rounds)
         if collect_telemetry:
             return out, _nodes_telemetry(
                 want, table, program, topology, ab, num_nodes=num_nodes,
@@ -425,7 +585,10 @@ def pull_pages(pool_pages: torch.Tensor, want: torch.Tensor,
     padded, _ = _pad_requests(want, rounds, budget)
     flat, home = _loopback_rows(padded, table, program, pool_pages.shape[0],
                                 tn, rounds, budget, active_budget)
-    out = _bg.gather_pages(pool_pages, flat)
+    if fused:
+        out = _bg.gather_pages(pool_pages, flat)
+    else:
+        out = _gather_local(pool_pages, flat, pool_pages.shape[0])
     out = out.view(tuple(padded.shape) + tuple(pool_pages.shape[1:]))
     # Trim the round padding on the request dim.
     out = out.narrow(want.dim() - 1, 0, r)
@@ -444,14 +607,16 @@ def push_pages(pool_pages: torch.Tensor, dest: torch.Tensor,
                table_nodes: int = 0, collect_telemetry: bool = False,
                topology: Optional[Topology] = None,
                tenant_ids: Optional[torch.Tensor] = None,
-               max_tenants: int = 0):
+               max_tenants: int = 0, fused: bool = True):
     """Write pages to their homes through the bridge.
 
     Args as :func:`pull_pages`, plus dest: [num_nodes, R] logical page ids
     each node writes and payload: [num_nodes, R, *page_shape] (cast to the
     pool's dtype).  Writes past ``rounds * active_budget`` spill and drop,
     as do writes over an unwired circuit; among one node's writes to one
-    page the last wins (pages have a single writer node).  Where the
+    page the last wins (pages have a single writer node).  Both engines
+    commit in the serial engine's order (each round's loopback writes,
+    then slot after slot), so the pool comes out the same.  Where the
     reference donates the pool buffer, the port updates ``pool_pages`` in
     place and returns it, or ``(pool_pages, telemetry)`` with
     ``collect_telemetry``.
@@ -469,10 +634,13 @@ def push_pages(pool_pages: torch.Tensor, dest: torch.Tensor,
     payload = payload.to(pool_pages.dtype)
     if num_nodes > 1:
         ab = _budget_vec(active_budget, num_nodes, budget, pool_pages.device)
-        if rounds:
+        if rounds and fused:
             _push_nodes(pool_pages, dest, payload.contiguous(), table, ab,
                         program, num_nodes=num_nodes, budget=budget,
                         channels=channels, rounds=rounds)
+        elif rounds:
+            _push_unfused(pool_pages, dest, payload, table, ab, program,
+                          num_nodes=num_nodes, budget=budget, rounds=rounds)
         if collect_telemetry:
             return pool_pages, _nodes_telemetry(
                 dest, table, program, topology, ab, num_nodes=num_nodes,
@@ -487,7 +655,11 @@ def push_pages(pool_pages: torch.Tensor, dest: torch.Tensor,
     flat, home = _loopback_rows(padded, table, program, pool_pages.shape[0],
                                 tn, rounds, budget, active_budget)
     flat_pay = payload.reshape((-1,) + tuple(payload.shape[2:]))
-    out = _bg.scatter_pages(pool_pages, flat, flat_pay.contiguous())
+    if fused:
+        out = _bg.scatter_pages(pool_pages, flat, flat_pay.contiguous())
+    else:
+        _scatter_local(pool_pages, flat, flat_pay, pool_pages.shape[0])
+        out = pool_pages
     if collect_telemetry:
         return out, _loopback_telemetry(padded, home, table, program, tn,
                                         topology, active_budget, budget,

@@ -16,17 +16,22 @@ bridge once, when it fills.  Two decode-attention placements:
 * ``bridge_pull`` pulls the flushed pages one bridge round at a time
   (``N * budget`` pages, node-major) and folds each round straight into the
   float32 flash-decode state (:func:`~repro_torch.kernels.bridge_attention.
-  stream_decode_accumulate`), then merges the tail page's partial;
+  stream_decode_accumulate`), then merges the tail page's partial; with
+  ``fused=False`` it pulls the whole request list at once through the
+  unfused engine and attends with plain tensor code (per-page partials
+  combined by their log-sum-exp), launching no kernel;
 * ``bridge_push`` (compute at the memory) computes a partial attention per
   memory node over the slots it holds and combines the partials by their
   log-sum-exp (the reference's ``pmax`` / ``psum`` become a max and a sum
   over the node axis), then merges the tail.  As in the reference this is
   plain tensor code; only its flushes launch the bridge's write kernels.
 
-With ``collect_telemetry`` the flushes and pulls also return the bridge's
-in-band counters, summed over the k and v transfers and over the rounds.
-The reference's buffers are immutable; the port updates the pools and the
-tail buffers in place.
+``fused`` and ``edge_buffer`` pick the bridge's engine, as in the
+reference: a bufferless bridge's N-node transfers run the unfused engine
+(:func:`_transfer_fused`).  With ``collect_telemetry`` the flushes and
+pulls also return the bridge's in-band counters, summed over the k and v
+transfers and over the rounds.  The reference's buffers are immutable;
+the port updates the pools and the tail buffers in place.
 """
 from __future__ import annotations
 
@@ -190,21 +195,32 @@ def _by_node(x: torch.Tensor, num_nodes: int, fill=0) -> torch.Tensor:
     return x.reshape((num_nodes, per_node) + tuple(x.shape[1:]))
 
 
+def _transfer_fused(fused: bool, edge_buffer: bool, num_nodes: int) -> bool:
+    """The bridge's ``fused`` for one transfer.  A bufferless bridge
+    (``edge_buffer=False``) has no edge buffers to land a fused round in:
+    its N-node transfers run the serial unfused engine, as the reference's
+    do.  The loopback path has no wire and ignores it."""
+    return fused and (edge_buffer or num_nodes == 1)
+
+
 def append(layer: PagedKVLayer, table: MemPortTable, lengths: torch.Tensor,
            k_new: torch.Tensor, v_new: torch.Tensor, *, page_tokens: int,
            max_pages: int, num_nodes: int = 1, budget: int = 8,
-           channels: int = 1, program: Optional[RouteProgram] = None,
+           edge_buffer: bool = True, channels: int = 1,
+           program: Optional[RouteProgram] = None,
            collect_telemetry: bool = False, topology=None,
            tenant_of_seq: Optional[torch.Tensor] = None,
-           max_tenants: int = 0):
+           max_tenants: int = 0, fused: bool = True):
     """Append one token's (k, v) [B, kv, hd] for one layer.
 
     Tokens land in the local tail buffer; when a sequence's tail page fills,
     the page is flushed through the bridge to its pooled home (one masked
     ``push_pages`` per pool over ``num_nodes`` nodes: sequences not at a
     page boundary, and the padding rows of a batch that does not split
-    evenly over the nodes, carry FREE).  ``channels`` and ``program`` thread
-    to the bridge.  Updates ``layer``'s tensors in place and returns it, or
+    evenly over the nodes, carry FREE).  ``channels`` and ``program``
+    thread to the bridge; ``fused`` and ``edge_buffer`` pick its engine
+    (:func:`_transfer_fused`).  Updates ``layer``'s
+    tensors in place and returns it, or
     ``(layer, telemetry)`` with ``collect_telemetry``: the write-path
     counters of both pushes summed; ``tenant_of_seq`` (i32[B] on the
     device) attributes each sequence's flushes to its tenant.
@@ -224,7 +240,8 @@ def append(layer: PagedKVLayer, table: MemPortTable, lengths: torch.Tensor,
     dest = _by_node(dest.to(torch.int32), num_nodes, fill=FREE)  # [N, B/N]
     kw = dict(num_nodes=num_nodes, budget=budget, channels=channels,
               program=program, collect_telemetry=collect_telemetry,
-              topology=topology, max_tenants=max_tenants)
+              topology=topology, max_tenants=max_tenants,
+              fused=_transfer_fused(fused, edge_buffer, num_nodes))
     if collect_telemetry and tenant_of_seq is not None:
         kw["tenant_ids"] = _by_node(tenant_of_seq.to(torch.int32), num_nodes)
     k_out = bridge.push_pages(layer.k_pool, dest,
@@ -248,11 +265,11 @@ def decode_attention_pull(q: torch.Tensor, layer: PagedKVLayer,
                           table: MemPortTable, lengths: torch.Tensor, *,
                           page_tokens: int, max_pages: int,
                           num_nodes: int = 1, budget: int = 8,
-                          channels: int = 1,
+                          edge_buffer: bool = True, channels: int = 1,
                           program: Optional[RouteProgram] = None,
                           collect_telemetry: bool = False, topology=None,
                           tenant_of_seq: Optional[torch.Tensor] = None,
-                          max_tenants: int = 0):
+                          max_tenants: int = 0, fused: bool = True):
     """Paper-faithful: pull pages through the bridge, attend locally.
 
     q: [B, H, hd] -> out [B, H, hd].  Node i requests the pages of its
@@ -260,13 +277,20 @@ def decode_attention_pull(q: torch.Tensor, layer: PagedKVLayer,
     online-softmax accumulator one bridge round at a time, ``budget`` pages
     per node, node-major: every round of the request list is pulled,
     all-FREE rounds included, in the reference's order, so each lane lands
-    where it lands in the reference.  ``channels`` and ``program`` thread to
-    the bridge.  With ``collect_telemetry`` returns ``(out, telemetry)``:
-    the counters of the k and v pulls added each round, rounds added in
-    order; ``tenant_of_seq`` (i32[B]) attributes each sequence's pulls.
+    where it lands in the reference.  ``channels`` and ``program`` thread
+    to the bridge; ``edge_buffer=False`` keeps the fold but pulls each
+    round through the unfused engine (:func:`_transfer_fused`).
+    ``fused=False`` is the reference's unfused branch: one pull of the
+    whole ``[N, per_node * max_pages]`` request list for k and one for v,
+    then per-page partials (:func:`_page_partial`) combined per sequence
+    (:func:`_segment_combine`); the pulled pages are bit-exact against
+    ``fused=True`` and the output matches it to float tolerance (the pages
+    are folded in another order).
+    With ``collect_telemetry`` returns ``(out, telemetry)``: the counters of
+    the k and v pulls added each round (fused) or once (unfused);
+    ``tenant_of_seq`` (i32[B]) attributes each sequence's pulls.
     """
-    b, h, hd = q.shape
-    kv = layer.k_pool.shape[-2]
+    b = q.shape[0]
     want = logical_page_ids(b, max_pages, device=q.device)       # [B, P]
     # Only fully-flushed pages live in the pool.
     flushed = lengths // page_tokens
@@ -276,13 +300,39 @@ def decode_attention_pull(q: torch.Tensor, layer: PagedKVLayer,
     want = want.reshape(num_nodes, -1)                  # [N, B/N * P]
     kw = dict(num_nodes=num_nodes, budget=budget, channels=channels,
               program=program, collect_telemetry=collect_telemetry,
-              topology=topology, max_tenants=max_tenants)
+              topology=topology, max_tenants=max_tenants,
+              fused=_transfer_fused(fused, edge_buffer, num_nodes))
     tenants = None
     if collect_telemetry and tenant_of_seq is not None:
         ten_b = tenant_of_seq.to(torch.int32)[:, None].expand(b, max_pages)
         tenants = _by_node(ten_b, num_nodes).reshape(num_nodes, -1)
-    telem = None
+    if fused:
+        m_s, l_s, o_s, telem = _pull_rounds(q, layer, table, want, tenants,
+                                            kw, page_tokens=page_tokens,
+                                            max_pages=max_pages)
+    else:
+        m_s, l_s, o_s, telem = _pull_whole(q, layer, table, want, tenants,
+                                           flushed, kw,
+                                           page_tokens=page_tokens,
+                                           max_pages=max_pages)
+    m_t, l_t, o_t = _tail_partial(q, layer.tail_k, layer.tail_v,
+                                  lengths, page_tokens)
+    m, l, o = _merge(m_s, l_s, o_s, m_t, l_t, o_t)
+    out = _finalize(m, l, o).to(q.dtype)
+    if collect_telemetry:
+        return out, telem
+    return out
 
+
+def _pull_rounds(q, layer, table, want, tenants, kw, *, page_tokens: int,
+                 max_pages: int):
+    """The fused branch: pull one bridge round at a time and fold it into
+    the flash-decode state.  Returns (m, l, o, telemetry or None)."""
+    b, h, hd = q.shape
+    kv = layer.k_pool.shape[-2]
+    budget = kw["budget"]
+    collect_telemetry = kw["collect_telemetry"]
+    telem = None
     rtot = want.shape[-1]
     m_s = torch.full((b, h), NEG_INF, dtype=torch.float32, device=q.device)
     l_s = torch.zeros((b, h), dtype=torch.float32, device=q.device)
@@ -307,14 +357,41 @@ def decode_attention_pull(q: torch.Tensor, layer: PagedKVLayer,
             q, k_r.reshape(lanes, page_tokens, kv, hd),
             v_r.reshape(lanes, page_tokens, kv, hd), seq,
             live.to(torch.int32), m_s, l_s, o_s)
+    return m_s, l_s, o_s, telem
 
-    m_t, l_t, o_t = _tail_partial(q, layer.tail_k, layer.tail_v,
-                                  lengths, page_tokens)
-    m, l, o = _merge(m_s, l_s, o_s, m_t, l_t, o_t)
-    out = _finalize(m, l, o).to(q.dtype)
-    if collect_telemetry:
-        return out, telem
-    return out
+
+def _pull_whole(q, layer, table, want, tenants, flushed, kw, *,
+                page_tokens: int, max_pages: int):
+    """The unfused branch: one pull of the whole request list for k and one
+    for v, then every page's partial combined per sequence.  Returns (m, l,
+    o, telemetry or None)."""
+    b, _, hd = q.shape
+    kv = layer.k_pool.shape[-2]
+    telem = None
+    k_pages = bridge.pull_pages(layer.k_pool, want, table,
+                                tenant_ids=tenants, **kw)
+    v_pages = bridge.pull_pages(layer.v_pool, want, table,
+                                tenant_ids=tenants, **kw)
+    if kw["collect_telemetry"]:
+        (k_pages, telem_k), (v_pages, telem_v) = k_pages, v_pages
+        telem = telemetry_counters.add(telem_k, telem_v)
+    # [N, per_node * P, T, kv, hd] -> [B * P, T, kv, hd] (padding rows cut)
+    page_shape = (page_tokens, kv, hd)
+    flat_k = k_pages.reshape((-1, max_pages) + page_shape)[:b].reshape(
+        (b * max_pages,) + page_shape)
+    flat_v = v_pages.reshape((-1, max_pages) + page_shape)[:b].reshape(
+        (b * max_pages,) + page_shape)
+    dev = q.device
+    page_ids = torch.arange(b * max_pages, device=dev)
+    seq_of_page, page_of = page_ids // max_pages, page_ids % max_pages
+    pos = (page_of[:, None] * page_tokens
+           + torch.arange(page_tokens, device=dev)[None, :])
+    fl = flushed[seq_of_page]
+    valid = pos < (fl * page_tokens)[:, None]
+    m_p, l_p, o_p = _page_partial(q[seq_of_page], flat_k, flat_v, valid)
+    seg = torch.where(page_of < fl, seq_of_page, -1)
+    m_s, l_s, o_s = _segment_combine(m_p, l_p, o_p, seg, b)
+    return m_s, l_s, o_s, telem
 
 
 def _inverse_map(table: MemPortTable, slots_per_node: int,

@@ -10,10 +10,11 @@ the CPU through the kernels' plain versions.  ``--kv`` picks the KV
 placement (``local``, ``ring``, ``bridge_pull``, ``bridge_push``);
 ``--num-nodes N`` stripes the KV pool over N memory nodes of the bridge's
 ring (a node axis of the one device) and ``--channels`` sets the virtual
-channels of its rounds.  ``--telemetry`` collects the bridge's in-band
-counters and prints their aggregate and the control plane's channel pick
-from it; ``--tenants K`` serves the batch as K tenants (sequence b belongs
-to tenant b % K), whose pages the counters attribute.  ``--metrics``
+channels of its rounds; ``--no-fused`` runs the unfused bridge engine in
+place of the fused kernel datapath.  ``--telemetry`` collects the bridge's
+in-band counters and prints their aggregate and the control plane's
+channel pick from it; ``--tenants K`` serves the batch as K tenants
+(sequence b belongs to tenant b % K), whose pages the counters attribute.  ``--metrics``
 traces every decode step as a fenced span and prints the metrics registry;
 ``--trace-out PATH`` writes the Chrome trace.
 
@@ -64,6 +65,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--page-tokens", type=int, default=16)
     ap.add_argument("--channels", type=int, default=1,
                     help="virtual channels per bridge round (1 = serial)")
+    ap.add_argument("--no-fused", action="store_true",
+                    help="escape hatch: run the unfused bridge engine "
+                         "instead of the fused kernel datapath (bit-exact "
+                         "either way)")
     ap.add_argument("--num-nodes", type=int, default=1,
                     help="memory nodes the KV pool is striped over "
                          "(bridge_*; 1 = the loopback bridge)")
@@ -160,7 +165,8 @@ def main(argv=None) -> None:
     print(f"arch={cfg.name} kv={args.kv} batch={args.batch} "
           f"steps={args.steps} device={device}")
     if bridged:
-        print(f"bridge: num_nodes={args.num_nodes} channels={args.channels}")
+        print(f"bridge: num_nodes={args.num_nodes} channels={args.channels} "
+              f"fused={run.bridge.fused}")
     print(f"tokens/s={args.batch * args.steps / dt:.1f} "
           f"({dt / args.steps * 1e3:.1f} ms/step)")
     print("sample:", out[0][:16].tolist())
@@ -201,7 +207,8 @@ def main(argv=None) -> None:
 def make_run(cfg, args) -> RunConfig:
     shape = ShapeConfig("cli", args.max_len, args.batch, "decode")
     return RunConfig(model=cfg, shape=shape, kv_placement=args.kv,
-                     bridge=BridgeConfig(channels=args.channels))
+                     bridge=BridgeConfig(channels=args.channels,
+                                         fused=not args.no_fused))
 
 
 def _traffic_mode(run, cfg, params, args, device) -> dict:

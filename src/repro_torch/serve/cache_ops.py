@@ -13,13 +13,15 @@ Implements the cache-ops protocol used by
 * :class:`BridgeCacheOps` — every full-attention layer's KV pages in a pool
   striped over ``num_nodes`` memory nodes and addressed through one memport
   table.  ``pull`` mode pulls them back through the bridge each step (the
-  loopback path for one node, the fused N-node engine steered by a route
-  program otherwise); ``push`` mode computes attention at the memory
-  nodes.  Sliding-window layers keep a local ring (their state is bounded).
-  The table and the program live in the shared state
-  (``state["kv_shared"]``) as runtime inputs: the control plane may swap
-  either between steps.  With ``collect_telemetry`` every pooled layer's
-  state carries the cumulative bridge counters in ``st["telem"]``.
+  loopback path for one node, the N-node engine steered by a route
+  program otherwise: fused or unfused, as ``fused`` and ``edge_buffer``
+  pick, :func:`~repro_torch.core.kvbridge._transfer_fused`); ``push`` mode
+  computes attention at the memory nodes.  Sliding-window layers keep a
+  local ring (their state is bounded).  The table and the program live in
+  the shared state (``state["kv_shared"]``) as runtime inputs: the control
+  plane may swap either between steps.  With ``collect_telemetry`` every
+  pooled layer's state carries the cumulative bridge counters in
+  ``st["telem"]``.
 """
 from __future__ import annotations
 
@@ -72,7 +74,8 @@ class RingCacheOps:
 class BridgeCacheOps:
     """Disaggregated paged KV through the bridge, ``pull`` or ``push`` mode,
     over ``num_nodes`` memory nodes with ``channels`` virtual channels a
-    round.
+    round; ``edge_buffer`` and ``fused`` go to the KV cache's bridge calls
+    as in the reference (False: a bufferless bridge, the unfused engine).
 
     ``tenant_of_seq`` (one tenant id per batch slot; a list or array is
     converted once to a device int32 tensor) attributes every page a slot
@@ -82,8 +85,10 @@ class BridgeCacheOps:
     """
 
     def __init__(self, *, mode: str, max_len: int, page_tokens: int,
-                 num_nodes: int = 1, budget: int = 8, channels: int = 1,
-                 collect_telemetry: bool = False, tenant_of_seq=None,
+                 num_nodes: int = 1, budget: int = 8,
+                 edge_buffer: bool = True, channels: int = 1,
+                 fused: bool = True, collect_telemetry: bool = False,
+                 tenant_of_seq=None,
                  max_tenants: int = 0, topology=None,
                  dtype=torch.bfloat16, device="cuda"):
         if mode not in ("pull", "push"):
@@ -93,7 +98,9 @@ class BridgeCacheOps:
         self.page_tokens = page_tokens
         self.max_pages = -(-max_len // page_tokens)
         self.budget = budget
+        self.edge_buffer = edge_buffer
         self.channels = channels
+        self.fused = fused
         self.collect_telemetry = collect_telemetry
         self.device = torch.device(device)
         self.tenant_of_seq = (None if tenant_of_seq is None else
@@ -158,7 +165,9 @@ class BridgeCacheOps:
         collect = self.collect_telemetry
         kw = dict(page_tokens=self.page_tokens, max_pages=self.max_pages,
                   num_nodes=self.num_nodes())
-        bridge_kw = dict(kw, budget=self.budget, channels=self.channels,
+        bridge_kw = dict(kw, budget=self.budget,
+                         edge_buffer=self.edge_buffer,
+                         channels=self.channels, fused=self.fused,
                          program=shared.get("program"),
                          collect_telemetry=collect, topology=self.topology,
                          tenant_of_seq=self.tenant_of_seq,

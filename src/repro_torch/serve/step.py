@@ -18,16 +18,13 @@ def make_cache_ops(run: RunConfig, max_len: int, page_tokens: int = 512, *,
     or ``bridge_push``.
 
     ``num_nodes`` is the size of the memory axis the KV pool is striped
-    over, on one device: 1 runs the loopback bridge, more the fused N-node
-    engine (the reference's ``mesh``); ``run.bridge`` gives the round budget
-    and the channels.  ``collect_telemetry``, ``tenant_of_seq``,
-    ``max_tenants`` and ``topology`` go to the bridge placements and are
-    ignored by the others (no bridge traffic to count).
-
-    The port runs the fused, edge-buffered engine only: a bridge placement
-    with ``run.bridge.fused=False`` or ``run.bridge.edge_buffer=False``
-    raises ``NotImplementedError`` rather than running the fused engine
-    without a word (the unfused engines are ROADMAP queue 1 item 5)."""
+    over, on one device: 1 runs the loopback bridge, more an N-node
+    engine (the reference's ``mesh``); ``run.bridge`` gives the round
+    budget, the channels, ``edge_buffer`` and ``fused`` (False: the
+    bufferless bridge, the unfused engine).  ``collect_telemetry``,
+    ``tenant_of_seq``, ``max_tenants`` and ``topology`` go to the bridge
+    placements and are ignored by the others (no bridge traffic to
+    count)."""
     kp = run.kv_placement
     if kp == "local":
         cfgm = run.model
@@ -38,16 +35,12 @@ def make_cache_ops(run: RunConfig, max_len: int, page_tokens: int = 512, *,
     if kp == "ring":
         return RingCacheOps(max_len, dtype, device=device)
     if kp in ("bridge_pull", "bridge_push"):
-        for knob in ("fused", "edge_buffer"):
-            if not getattr(run.bridge, knob):
-                raise NotImplementedError(
-                    f"run.bridge.{knob}=False: the port runs the fused, "
-                    "edge-buffered bridge engine only; the unfused and "
-                    "bufferless engines are ROADMAP queue 1 item 5")
         return BridgeCacheOps(mode=kp.split("_")[1], max_len=max_len,
                               page_tokens=page_tokens, num_nodes=num_nodes,
                               budget=run.bridge.epoch_budget,
+                              edge_buffer=run.bridge.edge_buffer,
                               channels=run.bridge.channels,
+                              fused=run.bridge.fused,
                               collect_telemetry=collect_telemetry,
                               tenant_of_seq=tenant_of_seq,
                               max_tenants=max_tenants, topology=topology,
